@@ -8,20 +8,26 @@ and prints no result line):
      torch.cuda.is_available() is False;
   2. build: the CUDA kernel tri_inv (nvcc, sm_90a) and the native C runtime,
      in parallel, from the sources in this checkout, into
-     aprilsam_tpu_torch/build/ (gitignored);
+     aprilsam_tpu_torch/build/ (gitignored); the compiler's registers,
+     static shared memory and spills for each kernel (-Xptxas -v);
   3. kernel K1 (tri_inv) against its plain PyTorch version on the card at
-     [32,384,384], [8,96,96] and [1,48,48] in float64 and float32, with the
+     [32,384,384], [8,96,96] and [1,48,48] in float64 and float32 and at
+     the main path's [B,384,384] float64, B = 1, 2, 4, 8, 16, with the
      kernel's, the plain version's and the torch.linalg.solve_triangular
-     yardstick's times (CUDA events, after warm-up) beside the bound;
+     yardstick's call times (CUDA events, after warm-up) beside the bound,
+     and the device time of each CUDA kernel the kernel and the library
+     launch (torch.profiler);
   4. the tutorial dogleg through IncrementalSolver on the card (chi2
      7.805041);
   5. the main path: Replay(manhattan_world(3500, seed=0)) on the card in
      float64 with the default SolverConfig and the wall-clock gate off,
      held against the JAX package's golden (aprilsam_tpu_torch/golden/):
      per-step chi2 and the fast/full/batch census; the tri_inv launch
-     count of that run equals its full-path dispatches;
-  6. one JSON line listing every ported kernel; the card's line; and the
-     result line {"ok": true, "device": {...}}.
+     count of that run, and the sum of its counts by shape, equal its
+     full-path dispatches;
+  6. one JSON line listing every ported kernel, with K1's launches by shape
+     and their launch-weighted kernel and library times; the card's line;
+     and the result line {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -53,7 +60,11 @@ CARDS = {
         {"bytes_per_s": 3.9e12, "float64": 60e12, "float32": 60e12},
 }
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-SHAPES = [(32, 384, 384), (8, 96, 96), (1, 48, 48)]
+# (B, N, dtype) of T [B, N, N]: the first slice's shapes, then the B the
+# main path launches at N = 3 * panel_nodes = 384 (float64)
+SHAPES = [(B, N, dtype) for B, N in ((32, 384), (8, 96), (1, 48))
+          for dtype in (torch.float64, torch.float32)]
+SHAPES += [(B, 384, torch.float64) for B in (1, 2, 4, 8, 16)]
 
 
 def card_peaks(name: str) -> dict:
@@ -95,6 +106,60 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, iters: int = 20) -> dict:
+    """Mean device time in microseconds of each CUDA kernel that fn
+    launches, by the kernel's name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None)
+        if total is None:
+            total = e.cuda_time_total
+        if total:
+            name = re.sub(r"\(.*", "", e.key.replace(
+                "(anonymous namespace)::", "")).replace("void ", "")
+            out[name] = total / iters
+    return out
+
+
+def ptxas_figures(log: str) -> list:
+    """Registers, static shared memory and spill bytes of each kernel in
+    nvcc's -Xptxas -v output."""
+    rows, name, spills = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # _ZN..strip_kernelIdLi48ELb0E..: strip_kernel<double, 48, false>
+            name, spills = m.group(1), None
+            k = re.search(r"([a-z]+_kernel)I([df])E?(?:Li(\d+)ELb([01]))?",
+                          name)
+            if k:
+                args = ["double" if k.group(2) == "d" else "float"]
+                if k.group(3):
+                    args += [k.group(3), ("false", "true")[int(k.group(4))]]
+                name = f"{k.group(1)}<{', '.join(args)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = [int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"kernel": name, "registers": int(m.group(1)),
+                         "static_smem": int(smem.group(1)) if smem else 0,
+                         "spill_stores_loads": spills})
+            name = None
+    return rows
+
+
 def panel_like_triangles(B: int, N: int, dtype, seed: int) -> torch.Tensor:
     """Seeded well-conditioned upper triangles; the last matrix has its
     trailing quarter identity-padded as panel_backsub pads inactive rows."""
@@ -108,40 +173,50 @@ def panel_like_triangles(B: int, N: int, dtype, seed: int) -> torch.Tensor:
     return torch.from_numpy(T).to(dtype=dtype, device="cuda").contiguous()
 
 
+def measure_tri_inv(K, peaks, B: int, N: int, dtype) -> dict:
+    """K1 at one shape: checked against its plain version, then timed
+    beside the plain version, the library call and the bound."""
+    T = panel_like_triangles(B, N, dtype, seed=B * 1000 + N)
+    X = K.tri_inv(T)
+    torch.cuda.synchronize()
+    ref = K.tri_inv_plain(T)
+    abs_err = (X - ref).abs().max().item()
+    rel_err = abs_err / ref.abs().max().item()
+    if not torch.isfinite(X).all() or rel_err > TOL[dtype]:
+        raise AssertionError(
+            f"tri_inv [{B},{N},{N}] {dtype}: max relative error "
+            f"{rel_err} > {TOL[dtype]}")
+    if torch.tril(X, -1).abs().max().item() != 0.0:
+        raise AssertionError("tri_inv wrote below the diagonal")
+    eye = torch.eye(N, dtype=dtype, device="cuda")
+    kernel_ms = cuda_ms(lambda: K.tri_inv(T))
+    plain_ms = cuda_ms(lambda: K.tri_inv_plain(T))
+    library_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
+        T, eye.expand(T.shape), upper=True))
+    bound_ms, bound_by = tri_inv_bound_ms(B, N, dtype, peaks)
+    row = {"kernel": "tri_inv", "shape": [B, N, N],
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": abs_err, "max_rel_err": rel_err,
+           "tol_rel": TOL[dtype], "kernel_ms": kernel_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "kernel_over_library": kernel_ms / library_ms,
+           "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+           "bound_share": bound_ms / kernel_ms,
+           "kernel_device_us": device_us(lambda: K.tri_inv(T)),
+           "library_device_us": device_us(lambda: torch.linalg.solve_triangular(
+               T, eye.expand(T.shape), upper=True))}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def check_tri_inv(K, peaks) -> dict:
-    """Phase 3.  Returns the [32,384,384] float64 measurement (the main
-    path's shape and type) for the kernels line."""
-    main = None
-    for (B, N, _) in SHAPES:
-        for dtype in (torch.float64, torch.float32):
-            T = panel_like_triangles(B, N, dtype, seed=B * 1000 + N)
-            X = K.tri_inv(T)
-            torch.cuda.synchronize()
-            ref = K.tri_inv_plain(T)
-            abs_err = (X - ref).abs().max().item()
-            rel_err = abs_err / ref.abs().max().item()
-            if not torch.isfinite(X).all() or rel_err > TOL[dtype]:
-                raise AssertionError(
-                    f"tri_inv [{B},{N},{N}] {dtype}: max relative error "
-                    f"{rel_err} > {TOL[dtype]}")
-            if torch.tril(X, -1).abs().max().item() != 0.0:
-                raise AssertionError("tri_inv wrote below the diagonal")
-            eye = torch.eye(N, dtype=dtype, device="cuda")
-            kernel_ms = cuda_ms(lambda: K.tri_inv(T))
-            plain_ms = cuda_ms(lambda: K.tri_inv_plain(T))
-            library_ms = cuda_ms(lambda: torch.linalg.solve_triangular(
-                T, eye.expand(T.shape), upper=True))
-            bound_ms, bound_by = tri_inv_bound_ms(B, N, dtype, peaks)
-            row = {"kernel": "tri_inv", "shape": [B, N, N],
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "max_abs_err": abs_err, "max_rel_err": rel_err,
-                   "tol_rel": TOL[dtype], "kernel_ms": kernel_ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_us": bound_ms * 1e3, "bound_by": bound_by}
-            print(json.dumps(row), flush=True)
-            if (B, N, dtype) == (32, 384, torch.float64):
-                main = row
-    return main
+    """Phase 3.  Returns the measurements keyed (B, N, dtype name), as
+    K.launches_by_shape keys them."""
+    rows = {}
+    for B, N, dtype in SHAPES:
+        row = measure_tri_inv(K, peaks, B, N, dtype)
+        rows[(B, N, row["dtype"])] = row
+    return rows
 
 
 def run_tutorial() -> None:
@@ -191,8 +266,9 @@ def read_golden():
     return paths, np.asarray(chi2)
 
 
-def run_main_path(K, card: str) -> int:
-    """Phase 5.  Returns the tri_inv launches of the run."""
+def run_main_path(K, card: str) -> tuple:
+    """Phase 5.  Returns the tri_inv launches of the run, and those
+    launches by (B, N, dtype name)."""
     from aprilsam_tpu_torch.datasets import manhattan_world
     from aprilsam_tpu_torch.replay import Replay
     from aprilsam_tpu_torch.solver import SolverConfig
@@ -210,6 +286,7 @@ def run_main_path(K, card: str) -> int:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = K.launches
+    by_shape = dict(K.launches_by_shape)
 
     hist = rep.solver.chi2_history()
     paths = [r.path for r in res]
@@ -237,6 +314,9 @@ def run_main_path(K, card: str) -> int:
         "census": census, "golden_census": gold_census,
         "per_step_path_mismatches": path_mismatch,
         "full_dispatches": full_dispatches, "tri_inv_launches": launches,
+        "tri_inv_launches_by_shape": [
+            {"shape": [B, N, N], "dtype": dt, "launches": c}
+            for (B, N, dt), c in sorted(by_shape.items())],
     }
     print(json.dumps(summary), flush=True)
     if len(bad):
@@ -250,7 +330,10 @@ def run_main_path(K, card: str) -> int:
         raise AssertionError(
             f"tri_inv launched {launches} times for {full_dispatches} "
             "full-path dispatches")
-    return launches
+    if sum(by_shape.values()) != launches:
+        raise AssertionError(f"tri_inv launches by shape {by_shape} do not "
+                             f"sum to {launches}")
+    return launches, by_shape
 
 
 def main() -> int:
@@ -286,17 +369,32 @@ def main() -> int:
         build_s = {"tri_inv.cu (nvcc sm_90a)": f_kernel.result(),
                    "sam_native.c (cc)": f_native.result()}
     print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
+    with open(K.build() + ".log") as f:
+        for fig in ptxas_figures(f.read()):
+            print(json.dumps({"phase": "ptxas", **fig}), flush=True)
 
     # 3. the kernel against its plain version
-    main_row = check_tri_inv(K, peaks)
+    rows = check_tri_inv(K, peaks)
+    main_row = rows[(32, 384, "float64")]
 
     # 4-5. the tutorial, then the main path
     run_tutorial()
-    launches = run_main_path(K, smi)
+    launches, by_shape = run_main_path(K, smi)
     if launches == 0:
         raise AssertionError("the main path never launched tri_inv")
 
-    # 6. the kernels line, the card, the result
+    # 6. the kernels line, the card, the result; K1's share of the replay
+    # is its launches at each shape times that shape's time from phase 3
+    for key in by_shape:
+        if key not in rows:
+            B, N, dt = key
+            rows[key] = measure_tri_inv(K, peaks, B, N, getattr(torch, dt))
+    replay_shapes = [{
+        "shape": rows[key]["shape"], "dtype": rows[key]["dtype"],
+        "launches": c, "ms": rows[key]["kernel_ms"],
+        "library_ms": rows[key]["library_ms"],
+        "bound_ms": rows[key]["bound_us"] / 1e3}
+        for key, c in sorted(by_shape.items())]
     print(json.dumps({"kernels": [{
         "name": "tri_inv", "route": "cuda",
         "source": "aprilsam_tpu_torch/csrc/tri_inv.cu",
@@ -307,7 +405,12 @@ def main() -> int:
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_us"] / 1e3,
         "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}), flush=True)
+        "library_ms": main_row["library_ms"],
+        "replay_shapes": replay_shapes,
+        "replay_kernel_ms": sum(r["launches"] * r["ms"]
+                                for r in replay_shapes),
+        "replay_library_ms": sum(r["launches"] * r["library_ms"]
+                                 for r in replay_shapes)}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -33,15 +33,51 @@ def upper_triangles(rng, B, N, dtype):
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-10),
                                        (np.float32, 1e-4)])
 @pytest.mark.parametrize("B,N", [(32, 384), (8, 96), (1, 48), (3, 50),
-                                 (2, 1), (1, 700)])
+                                 (2, 1), (1, 700), (1, 384), (2, 384),
+                                 (4, 384), (8, 384), (16, 384), (1, 2000),
+                                 (1, 4500)])
 def test_tri_inv_kernel_matches_plain_version(B, N, dtype, tol):
+    """Every B the main path launches at N = 384, ragged last tiles, and
+    N = 2000 and 4500, where the strip's rows of all tiles no longer fit in
+    shared memory and stream (float64 at both, float32 at 4500)."""
     _need_card()
     rng = np.random.default_rng(B * 1000 + N)
     T = upper_triangles(rng, B, N, dtype)
     before = K.launches
+    key = (B, N, np.dtype(dtype).name)
+    before_shape = K.launches_by_shape.get(key, 0)
     X = K.tri_inv(T)
     torch.cuda.synchronize()
     assert K.launches == before + 1
+    assert K.launches_by_shape[key] == before_shape + 1
+    ref = K.tri_inv_plain(T)
+    err = ((X - ref).abs().max() / ref.abs().max()).item()
+    assert err <= tol
+    assert torch.tril(X, -1).abs().max().item() == 0.0
+
+
+# (B, N) at which the kernel picks each strip width on an H100 (132 SMs):
+# 48 (float64 only) when the B (nt - 1) strips fill the SMs, 16 when three
+# times as many give two blocks per SM, else 8; on a full and a ragged last
+# tile.
+WIDTH_SHAPES = {48: [(32, 384), (44, 150)], 16: [(16, 384), (30, 150)],
+                8: [(4, 384), (3, 150)]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,width,dtype,tol", [
+    (B, N, width, dtype, tol)
+    for width, shapes in WIDTH_SHAPES.items() for B, N in shapes
+    for dtype, tol in ((np.float64, 1e-10), (np.float32, 1e-4))
+    if not (width == 48 and dtype == np.float32)])
+def test_tri_inv_every_strip_width(B, N, width, dtype, tol):
+    """Each strip width the kernel is built for, at a shape that makes it
+    pick that width."""
+    _need_card()
+    rng = np.random.default_rng(N + width)
+    T = upper_triangles(rng, B, N, dtype)
+    X = K.tri_inv(T)
+    torch.cuda.synchronize()
     ref = K.tri_inv_plain(T)
     err = ((X - ref).abs().max() / ref.abs().max()).item()
     assert err <= tol

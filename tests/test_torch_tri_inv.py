@@ -81,7 +81,89 @@ def test_cpu_wrapper_takes_plain_version_and_counts_nothing():
     T = torch.from_numpy(well_conditioned(rng, 2, 48))
     X = K.tri_inv(T)
     assert K.launches == 0
+    assert K.launches_by_shape == {}
     torch.testing.assert_close(X, K.tri_inv_plain(T), rtol=0, atol=0)
+
+
+# The kernel's schedule (tri_inv.schedule) and its algorithm run block by
+# block with torch tile products (tri_inv.run_schedule), against JAX.
+
+@pytest.mark.parametrize("B,N", [(1, 1), (2, 5), (1, 48), (3, 50), (2, 96),
+                                 (1, 384), (4, 384), (8, 384), (16, 384),
+                                 (32, 384), (1, 700)])
+def test_schedule_covers_every_tile_once(B, N):
+    nt = -(-N // 48)
+    for width in (48, 16, 8):
+        s = K.schedule(B, N, width)
+        assert s.tiles == nt and s.width == width
+        assert sorted(s.diag_blocks) == [(b, i) for b in range(B)
+                                         for i in range(nt)]
+        assert (len(set(s.zero_blocks)) == len(s.zero_blocks)
+                == B * nt * (nt - 1) // 2)
+        assert all(k < i < nt for _, i, k in s.zero_blocks)
+        if nt == 1:
+            assert s.strip_blocks == []
+            continue
+        # longest strips first; every column right of the first tile in
+        # exactly one strip that does work
+        Js = [J for _, J, _ in s.strip_blocks]
+        assert Js == sorted(Js, reverse=True) and min(Js) == 1
+        cols = [(b, c) for b, J, c0 in s.strip_blocks if c0 < N
+                for c in range(c0, min(c0 + width, N))]
+        assert sorted(cols) == [(b, c) for b in range(B)
+                                for c in range(48, N)]
+        assert all(c0 // 48 == J for _, J, c0 in s.strip_blocks)
+
+
+def test_schedule_widths_at_the_main_path_shapes():
+    """N = 384: each width the kernel picks there (48 at B = 32, 16 at
+    B = 16, 8 below, in float64 on an H100) gives B * 7 * 48 / W strip
+    blocks; the longest strip streams each of its 28 tiles of T once and
+    the 7 inverted diagonal tiles, one per step."""
+    for B, width in ((32, 48), (16, 16), (8, 8), (1, 8)):
+        s = K.schedule(B, 384, width)
+        assert len(s.strip_blocks) == B * 7 * 48 // width
+    stream = K.chunk_stream(7)
+    assert len(stream) == 35
+    assert sorted(c for c in stream if c[1] > c[0]) == [
+        (i, k) for i in range(7) for k in range(i + 1, 8)]
+    assert [c for c in stream if c[0] == c[1]] == [(i, i) for i in
+                                                   range(6, -1, -1)]
+    with pytest.raises(ValueError):
+        K.schedule(1, 384, 24)
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (2, 5), (2, 48), (3, 50), (2, 96),
+                                 (2, 384), (1, 700)])
+def test_schedule_matches_jax(B, N):
+    """The kernel's blocked algorithm, in its block and chunk order, against
+    the JAX package's tri_inv, and against its Pallas kernel in interpret
+    mode where N is a multiple of 48."""
+    rng = np.random.default_rng(N + 17)
+    T = well_conditioned(rng, B, N)
+    ref = np.asarray(j_tri_inv(jnp.asarray(T)))
+    if N % 48 == 0:
+        pal = np.asarray(tri_inv_pallas(jnp.asarray(np.triu(T)),
+                                        interpret=True))
+    for width in (48, 16, 8):
+        got = K.run_schedule(torch.from_numpy(T),
+                             K.schedule(B, N, width)).numpy()
+        assert np.all(np.isfinite(got))
+        assert _rel(got, ref) < 1e-12
+        assert np.all(np.tril(got, -1) == 0.0)
+        if N % 48 == 0:
+            assert _rel(got, pal) < 1e-12
+
+
+@pytest.mark.parametrize("width", [48, 16, 8])
+def test_schedule_every_width_on_a_ragged_tile(width):
+    rng = np.random.default_rng(width)
+    T = well_conditioned(rng, 2, 150)
+    s = K.schedule(2, 150, width=width)
+    assert s.width == width
+    got = K.run_schedule(torch.from_numpy(T), s).numpy()
+    ref = np.stack([np.linalg.inv(np.triu(t)) for t in T])
+    assert _rel(got, ref) < 1e-12
 
 
 def test_wrapper_rejects_other_devices():

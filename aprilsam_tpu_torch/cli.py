@@ -3,14 +3,17 @@
 
 Same flags and defaults as the JAX package's CLI, plus --device:
   --datapath           g2o/TORO text dataset (VERTEX2/EDGE2)
-  --graphpath          binary .graph dataset (not ported yet: raises)
+  --graphpath          binary .graph dataset (default ../data/M3500.graph)
   --batch_update_only  run full batch Gauss-Newton every pose
   --nthreshold 100     batch fallback threshold on relinearized-node count
   --delta_xy 0.1       relinearization xy threshold
   --delta_theta 0.1    relinearization theta threshold
 Float32 on the card unless --dtype float64; float64 on the CPU.
+--superstep S > 1 is the throughput mode: S steps per joint frontal update,
+the policy read two dispatches late, chi2 read once at the end.
 
     python -m aprilsam_tpu_torch.cli --datapath M3500.txt --quiet --json
+    python -m aprilsam_tpu_torch.cli --graphpath M3500.graph --superstep 96
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "reference's bucketed-heap scheme")
     ap.add_argument("--superstep", type=int, default=1,
                     help="dispatch this many steps as one joint frontal "
-                         "update (not ported yet: values > 1 raise)")
+                         "update (throughput mode; 1 = per-step reference "
+                         "semantics)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises if no card)")
     ap.add_argument("--quiet", action="store_true")
@@ -64,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    from .io import load_g2o_text
+    from .io import load_g2o_text, load_graph_file
     from .replay import Replay
     from .solver import SolverConfig
     from .utils import resolve_device
@@ -73,11 +77,10 @@ def main(argv=None) -> int:
     if args.dtype is None:
         args.dtype = "float64" if device.type == "cpu" else "float32"
 
-    if not args.datapath:
-        raise NotImplementedError(
-            "--graphpath needs io/stype.py, which the next slice of the "
-            "port brings over; use --datapath with a g2o text file")
-    loaded = load_g2o_text(args.datapath)
+    if args.datapath:
+        loaded = load_g2o_text(args.datapath)
+    else:
+        loaded = load_graph_file(args.graphpath)
     if not args.quiet:
         print(f"{loaded.nnodes} nodes,  factors: {loaded.nfactors}")
 
@@ -96,14 +99,19 @@ def main(argv=None) -> int:
         log_chi2=args.superstep <= 1,
     )
     rep = Replay(loaded, cfg, batch_update_only=args.batch_update_only,
-                 device=device)
+                 deferred=args.superstep > 1, device=device)
     res = rep.run(max_steps=args.max_steps, verbose=not args.quiet)
 
     last = res[-1] if res else None
+    final_chi2 = last.chi2 if last is not None else float("nan")
+    if final_chi2 != final_chi2:
+        # superstep mode logs no per-step chi2; read it once
+        rep.solver.flush(rep.graph)
+        final_chi2 = rep.solver.chi2()
     if args.json and last is not None:
         print(json.dumps({
             "steps": len(res),
-            "final_chi2": last.chi2,
+            "final_chi2": final_chi2,
             "total_ms": last.total_ms,
             "mean_step_ms": last.total_ms / len(res),
             "poses_per_sec": 1e3 * len(res) / last.total_ms,

@@ -1,7 +1,6 @@
 """Pose-by-pose replay driver — the equivalent of the reference benchmark CLI
 loop (reference: simulate_on_exist_graph / simulate_event,
-examples/aprilsam_demo.c:119-234); counterpart of ``aprilsam_tpu/replay.py``
-in its synchronous mode.
+examples/aprilsam_demo.c:119-234); counterpart of ``aprilsam_tpu/replay.py``.
 
 Given a fully loaded dataset graph, replays it one pose at a time:
   * step 0: add node 0 plus the geopin prior W = diag(1e4, 1e4, 1e3) at the
@@ -12,6 +11,14 @@ Given a fully loaded dataset graph, replays it one pose at a time:
     odometry measurement (aprilsam_demo.c:180-191);
   * optimize: incremental from step 1 on (batch when batch_update_only),
     then report chi2 and timing (aprilsam_demo.c:224-232).
+
+Two execution modes:
+  * synchronous (default): each step's chi2 comes back from the device, as
+    the reference prints it step by step;
+  * deferred (policy_lag > 0 or supersteps): no per-step wait for the
+    device; update() returns None, the step's chi2 is NaN until finish()
+    backfills it from the metric ring (per-step mode only: in superstep
+    mode the ring holds one entry per superstep).
 """
 
 from __future__ import annotations
@@ -50,14 +57,10 @@ class Replay:
         deferred: bool = False,
         device="cuda",
     ):
-        if deferred:
-            raise NotImplementedError(
-                "deferred replay (policy_lag / supersteps) is not ported to "
-                "aprilsam_tpu_torch yet; it comes with the throughput modes "
-                "in a later slice (ROADMAP.md queue 1)")
         self.loaded = loaded
         self.cfg = cfg or SolverConfig()
         self.batch_update_only = batch_update_only
+        self.deferred = deferred and not batch_update_only
         self.graph = FactorGraph()
         self.event_idx = 0
         self.total_ms = 0.0
@@ -145,12 +148,13 @@ class Replay:
             info = self.solver.solve(self.graph)
         else:
             info = self.solver.update(self.graph, seeds=seeds)
+        chi2 = info.chi2 if info is not None else math.nan
         ms = (time.perf_counter() - t0) * 1e3
         self.total_ms += ms
         if self.batch_update_only:
             self.solver.sync_states(self.graph)
         res = StepResult(
-            step=self.event_idx - 1, chi2=info.chi2, step_ms=ms,
+            step=self.event_idx - 1, chi2=chi2, step_ms=ms,
             total_ms=self.total_ms,
             path=getattr(self.solver, "last_path", "batch"),
             naffected=getattr(self.solver, "last_naffected", 0),
@@ -179,10 +183,14 @@ class Replay:
         return self.results
 
     def finish(self):
-        """End of replay: backfill any step chi2 the solver did not report
-        from its metric ring."""
+        """End of replay: flush the solver's buffered steps and pending
+        policy stats, and backfill any step chi2 it did not report from its
+        metric ring."""
         if isinstance(self.solver, IncrementalSolver):
             self.solver.flush(self.graph)
+            if self.cfg.superstep_size > 1:
+                # the ring holds one entry per superstep, not per step
+                return
             hist = self.solver.chi2_history()
             for r in self.results:
                 if math.isnan(r.chi2) and r.step < len(hist):

@@ -10,11 +10,14 @@ Defaults match the reference demo exactly: tikhonov 1e-4
 (april_graph_cholesky_param_init, aprilsam.c:45-64), delta_xy = 0.1,
 delta_theta = 0.1, nthreshold = 100 (examples/aprilsam_demo.c:250-252).
 
-The port runs the synchronous per-step path.  The throughput settings of the
-JAX package (policy_lag, bundle_size, superstep_size, sweep_window_panels,
-coalesce_full_solves) and the device batch backends keep their fields here
-so configurations carry across unchanged, but ``unported_settings`` names
-them and the solvers raise ``NotImplementedError`` on any of them.
+The port runs the synchronous per-step path and the throughput modes of
+the same path: the deferred policy (policy_lag, policy_poll), supersteps
+(superstep_size, superstep_buckets, sweep_every_supersteps) and the
+windowed sweep (sweep_window_panels, sweep_full_every).  Bundled dispatch
+(bundle_size, coalesce_full_solves) and the device batch backends keep
+their fields here so configurations carry across unchanged, but
+``unported_settings`` names them and the solvers raise
+``NotImplementedError`` on any of them.
 """
 
 from __future__ import annotations
@@ -42,19 +45,38 @@ class SolverConfig:
     # wall-clock gate makes the incremental trajectory machine-dependent.
     wallclock_gate: bool = True
 
-    # --- throughput modes of the JAX package (not ported yet) ---
+    # --- throughput modes ---
+    # Steps by which batch-fallback decisions may lag (the policy stats are
+    # read back asynchronously); 0 = synchronous reference semantics.
     policy_lag: int = 0
+    # In lagged mode, read the policy stats once per this many due entries
+    # (the device counters are cumulative, so the newest entry suffices).
     policy_poll: int = 1
+    # Bundled dispatch (not ported yet).
     bundle_size: int = 1
     bundle_size_full: int = 4
     mixed_bundles: bool = True
     coalesce_full_solves: bool = False
+    # Supersteps: buffer this many steps and dispatch them as ONE joint
+    # frontal update on the union affected set, then one sweep.  1 = off.
     superstep_size: int = 1
+    # Windowed sweep: > 0 = capacity PW of the panel window a superstep
+    # refreshes (the union front + fringe panels); a full sweep runs when
+    # the window overflows PW and every sweep_full_every-th superstep.
     sweep_window_panels: int = 0
     sweep_full_every: int = 8
+    # Only every K-th superstep sweeps; flush() clears the staleness.
     sweep_every_supersteps: int = 1
+    # Affected-set buckets of the union front (None = the ladder below);
+    # a union beyond the largest takes the batch fallback.
     superstep_buckets: tuple = None
     ridx_pack_capacity: int = None
+
+    @property
+    def effective_superstep_buckets(self) -> tuple:
+        if self.superstep_buckets is not None:
+            return self.superstep_buckets
+        return (64, 128, 256, 384, 1024)
 
     # Fill-reducing ordering style: "md" = exact minimum degree with lazy
     # re-evaluation (newest-last); "heapmd" = the reference's bucketed heap
@@ -105,17 +127,11 @@ class SolverConfig:
         return 1
 
     def unported_settings(self) -> List[str]:
-        """Settings of the JAX package's throughput modes and device batch
+        """Settings of the JAX package's bundled dispatch and device batch
         epochs, which later slices of the port bring over."""
         out = []
-        if self.policy_lag > 0:
-            out.append("policy_lag>0 (deferred policy)")
         if self.bundle_size > 1:
             out.append("bundle_size>1 (bundled dispatch)")
-        if self.superstep_size > 1:
-            out.append("superstep_size>1 (supersteps)")
-        if self.sweep_window_panels > 0:
-            out.append("sweep_window_panels>0 (windowed sweep)")
         if self.coalesce_full_solves:
             out.append("coalesce_full_solves (bundled dispatch)")
         if self.batch_backend in ("device", "panel"):
@@ -128,5 +144,5 @@ class SolverConfig:
         if bad:
             raise NotImplementedError(
                 "not ported to aprilsam_tpu_torch yet: " + ", ".join(bad)
-                + "; the throughput modes and the device batch epochs come "
+                + "; bundled dispatch and the device batch epochs come "
                 "in later slices of the port (ROADMAP.md queue 1)")

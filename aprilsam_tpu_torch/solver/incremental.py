@@ -1,8 +1,8 @@
-"""Hybrid incremental/batch solver — the AprilSAM algorithm, synchronous
-per-step mode.
+"""Hybrid incremental/batch solver — the AprilSAM algorithm, per step or in
+supersteps, with a synchronous or a lagged batch-fallback policy.
 
-Counterpart of the synchronous subset of ``aprilsam_tpu/solver/
-incremental.py`` (reference: april_graph_cholesky_inc, aprilsam.c:377-576).
+Counterpart of ``aprilsam_tpu/solver/incremental.py`` without its bundled
+dispatch (reference: april_graph_cholesky_inc, aprilsam.c:377-576).
 The algebra is the JAX package's.  Two structural facts make the affected
 submatrix self-contained: row p of R has nonzeros only at etree ancestors of
 p, and the affected set F (paths from the touched nodes to the root,
@@ -18,9 +18,19 @@ block-sparse R through kernels/sweep.py:panel_backsub, whose panel
 inverses run in the CUDA kernel K1 on the card).  Then the batch-fallback
 policy (aprilsam.c:557-575).
 
+Throughput modes (as in the JAX package):
+  * policy_lag > 0: the policy stats of each dispatch are copied to pinned
+    host memory behind a CUDA event and read policy_lag dispatches later,
+    so the host never waits for the device to decide on a batch epoch;
+  * superstep_size > 1: a buffer of steps is planned as ONE union front and
+    dispatched as one joint frontal update plus one sweep (whole-graph, or
+    windowed to the panels the union front touches);
+  * the policy's wall-clock gate then reads dispatch-to-dispatch intervals.
+
 How the port differs from the JAX package, with the algebra unchanged:
-  * the host plan (StepPlan) carries numpy arrays, uploaded as tensors;
-    there is no packed int32 plan vector;
+  * the host plan (StepPlan) carries numpy arrays; each dispatch uploads
+    them in one copy per dtype (pinned, asynchronous on the card); there is
+    no packed int32 plan vector and no front gather/scatter tables;
   * tensors are sized to the step (m affected rows, the step's factors)
     instead of padded to static buckets, and the JAX package's one-hot
     einsums are index ops; the frontal buckets survive only as the
@@ -31,9 +41,11 @@ How the port differs from the JAX package, with the algebra unchanged:
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
+from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +54,7 @@ from ..geometry import mod2pi, xyt_inv, xyt_mul
 from ..graph import FactorGraph, FACTOR_XYT
 from ..factors import eval_xyt, eval_xytpos
 from ..kernels.linalg3 import chol3, solve_upper3
-from ..kernels.sweep import panel_backsub
+from ..kernels.sweep import panel_backsub, panel_backsub_windowed
 from ..utils import resolve_device, setup_precision
 from ..utils.timeprofile import TimeProfile
 from .batch import BatchInfo
@@ -213,28 +225,41 @@ def plan_step(
     n_old: int,
     seeds: Sequence[SeedSpec],
     python_planner: bool = False,
+    knode: int = KNODE,
+    kseed: int = KSEED,
+    kfac: Optional[int] = None,
+    buckets: Optional[tuple] = None,
+    n_end: Optional[int] = None,
 ) -> Optional[StepPlan]:
     """Host symbolic work for one incremental step: extend the ordering,
     find the affected set, merge the new factor edges into its row
     patterns, and find the fringe.  Returns None when the affected set
     exceeds the largest frontal bucket (the caller falls back to a batch
     epoch).  `python_planner` runs the pure-python planner instead of the
-    native one (the two give identical plans)."""
+    native one (the two give identical plans).
+
+    knode/kseed/kfac/buckets default to the per-step capacities; a
+    superstep plans the union of a whole buffer of steps in ONE call with
+    buffer-sized ones.  n_end bounds the span of new nodes (a superstep
+    flushed for capacity dispatches a buffer whose last step predates the
+    graph's current tail)."""
     NCAP = cfg.node_capacity
     BCAP = cfg.row_block_capacity
-    K = cfg.new_factor_capacity
-    buckets = cfg.frontal_buckets
+    K = kfac if kfac is not None else cfg.new_factor_capacity
+    if buckets is None:
+        buckets = cfg.frontal_buckets
 
     # 1. extend ordering with new nodes (aprilsam.c:392-397)
-    new_ids = list(range(n_old, g.nnodes))
+    new_ids = list(range(n_old, g.nnodes if n_end is None else n_end))
     seeds = _dedup_seeds(seeds)
     # seeds apply in ONE vectorized hop (gather src after node ingestion,
     # scatter dst): a src that is itself seeded would read its pre-seed
-    # state.  Per-step seeds always come from pre-existing nodes.
+    # state.  Per-step seeds always come from pre-existing nodes; superstep
+    # plans pass chains pre-composed on the host.
     dsts = {s.dst for s in seeds}
     if any(s.src in dsts for s in seeds):
         raise ValueError("seed chains: a seed source is also seeded")
-    if len(new_ids) > KNODE or len(seeds) > KSEED:
+    if len(new_ids) > knode or len(seeds) > kseed:
         raise OverflowError("too many new nodes/seeds in one step")
     sym_mod.append_nodes(sym, new_ids)
 
@@ -348,42 +373,89 @@ def plan_step(
 # device step
 # ======================================================================
 
-def _dev(ds: DeviceState, a: np.ndarray, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a), device=ds.device,
-                           dtype=dtype)
+def _upload(ds: DeviceState, ints: Dict[str, np.ndarray],
+            floats: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The host arrays of one dispatch on the device, in one copy per
+    dtype: index arrays as int64, float arrays in the state's dtype.  On
+    the card the copy leaves pinned host memory asynchronously (PyTorch's
+    caching host allocator keeps the buffer until the copy is done), so
+    the host does not wait for earlier device work, as a pageable upload
+    would.  Returns views into the copies, shaped as the arrays."""
+    out = {}
+    cuda = ds.device.type == "cuda"
+    for arrays, dtype in ((ints, torch.int64), (floats, ds.state.dtype)):
+        flat = [np.asarray(a).reshape(-1) for a in arrays.values()]
+        host = torch.empty(sum(len(f) for f in flat), dtype=dtype,
+                           pin_memory=cuda)
+        h = host.numpy()
+        offs, o = [], 0
+        for f in flat:
+            h[o:o + len(f)] = f
+            offs.append(o)
+            o += len(f)
+        dev = host.to(ds.device, non_blocking=True) if cuda else host
+        for (name, a), o, f in zip(arrays.items(), offs, flat):
+            out[name] = dev[o:o + len(f)].view(np.shape(a))
+    return out
 
 
-def inc_ingest_tail(ds: DeviceState, tail: StepTail) -> DeviceState:
+def tail_tensors(ds: DeviceState, tail: StepTail,
+                 **ints: np.ndarray) -> Dict[str, torch.Tensor]:
+    """Upload a step tail (and any further index arrays) for
+    inc_ingest_tail."""
+    ints = dict(node_ids=tail.node_ids, seed_src=tail.seed_src,
+                seed_dst=tail.seed_dst, seed_inv=tail.seed_inv,
+                nf_a=tail.nf_a, nf_b=tail.nf_b, np_node=tail.np_node,
+                **ints)
+    floats = dict(node_states=tail.node_states, seed_z=tail.seed_z,
+                  nf_z=tail.nf_z, nf_W=tail.nf_W, np_z=tail.np_z,
+                  np_W=tail.np_W)
+    return _upload(ds, ints, floats)
+
+
+def plan_tensors(ds: DeviceState, plan: StepPlan,
+                 **ints: np.ndarray) -> Dict[str, torch.Tensor]:
+    """Upload a step plan (and any further index arrays) for the step
+    bodies."""
+    return tail_tensors(
+        ds, plan.tail, F_pos=plan.F_pos, F_node=plan.F_node,
+        new_ridx=plan.new_ridx, new_nnz=plan.new_nnz,
+        nf_a_slot=plan.nf_a_slot, nf_b_slot=plan.nf_b_slot,
+        np_slot=plan.np_slot, fringe_pos=plan.fringe_pos,
+        fringe_node=plan.fringe_node, **ints)
+
+
+def inc_ingest_tail(ds: DeviceState, tail: StepTail,
+                    P: Dict[str, torch.Tensor]) -> DeviceState:
     """New nodes + odometry seeding + factor-table appends, in place (the
-    first part of every step, and the whole of the plan-overflow path)."""
-    dt = ds.state.dtype
+    first part of every step, and the whole of the plan-overflow path).
+    P holds the tail's tensors (tail_tensors)."""
     k = len(tail.node_ids)
     if k:
-        ids = _dev(ds, tail.node_ids)
-        st = _dev(ds, tail.node_states, dt)
+        ids, st = P["node_ids"], P["node_states"]
         ds.state[ids] = st
         ds.l_point[ids] = st
-        ds.delta_X[ids] = 0.0
+        # index_fill_ takes the scalar on the host; an indexed assignment
+        # of 0.0 would copy it to the card and wait for the copy
+        ds.delta_X.index_fill_(0, ids, 0.0)
         ds.nnodes += k
     if len(tail.seed_dst):
         # dst = src (+) z, or src (+) inv(z) (aprilsam_demo.c:180-191)
-        z = _dev(ds, tail.seed_z, dt)
-        inv = _dev(ds, tail.seed_inv)
-        z_eff = torch.where(inv[:, None], xyt_inv(z), z)
-        seeded = xyt_mul(ds.state[_dev(ds, tail.seed_src)], z_eff)
-        dst = _dev(ds, tail.seed_dst)
-        ds.state[dst] = seeded
-        ds.l_point[dst] = seeded
+        z = P["seed_z"]
+        z_eff = torch.where(P["seed_inv"][:, None] != 0, xyt_inv(z), z)
+        seeded = xyt_mul(ds.state[P["seed_src"]], z_eff)
+        ds.state[P["seed_dst"]] = seeded
+        ds.l_point[P["seed_dst"]] = seeded
     kx = len(tail.nf_a)
     if kx:
         n0 = ds.n_xyt
         if n0 + kx > ds.xyt_a.shape[0]:
             raise OverflowError("xyt factor capacity exceeded")
         sl = slice(n0, n0 + kx)
-        ds.xyt_a[sl] = _dev(ds, tail.nf_a)
-        ds.xyt_b[sl] = _dev(ds, tail.nf_b)
-        ds.xyt_z[sl] = _dev(ds, tail.nf_z, dt)
-        ds.xyt_W[sl] = _dev(ds, tail.nf_W, dt)
+        ds.xyt_a[sl] = P["nf_a"]
+        ds.xyt_b[sl] = P["nf_b"]
+        ds.xyt_z[sl] = P["nf_z"]
+        ds.xyt_W[sl] = P["nf_W"]
         ds.n_xyt = n0 + kx
     kp = len(tail.np_node)
     if kp:
@@ -391,9 +463,9 @@ def inc_ingest_tail(ds: DeviceState, tail: StepTail) -> DeviceState:
         if n0 + kp > ds.pos_node.shape[0]:
             raise OverflowError("xytpos factor capacity exceeded")
         sl = slice(n0, n0 + kp)
-        ds.pos_node[sl] = _dev(ds, tail.np_node)
-        ds.pos_z[sl] = _dev(ds, tail.np_z, dt)
-        ds.pos_W[sl] = _dev(ds, tail.np_W, dt)
+        ds.pos_node[sl] = P["np_node"]
+        ds.pos_z[sl] = P["np_z"]
+        ds.pos_W[sl] = P["np_W"]
         ds.n_pos = n0 + kp
     return ds
 
@@ -422,19 +494,21 @@ def _measurement_rows(Wh, J_slots, m: int, dtype, device):
     return rows.permute(0, 2, 1, 3).reshape(3 * F, 3 * m)
 
 
-def _frontal_core(ds: DeviceState, plan: StepPlan):
+def _frontal_core(ds: DeviceState, plan: StepPlan,
+                  P: Dict[str, torch.Tensor]):
     """Ingest the step, then the dense frontal QR update of the affected
-    rows; writes R' and y' back on the new pattern.  Returns (R_up [3m, 3m],
-    y_new [3m], spd (0-d bool), pos2f, F_pos)."""
+    rows; writes R' and y' back on the new pattern.  P holds the plan's
+    tensors (plan_tensors).  Returns (R_up [3m, 3m], y_new [3m], spd (0-d
+    bool), pos2f, F_pos)."""
     NCAP = ds.state.shape[0]
     dtype, dev = ds.R_blocks.dtype, ds.device
     m = plan.m
     K3 = 3 * m
-    inc_ingest_tail(ds, plan.tail)
+    inc_ingest_tail(ds, plan.tail, P)
 
     # ---------------- frontal gather: RF[r, c] = R block of row F[r] at
     # column F[c]; pos2f maps a position to its front slot (else -1)
-    F_pos = _dev(ds, plan.F_pos)
+    F_pos = P["F_pos"]
     ar_m = torch.arange(m, device=dev)
     pos2f = torch.full((NCAP + 1,), -1, dtype=torch.int64, device=dev)
     pos2f[F_pos] = ar_m
@@ -447,13 +521,9 @@ def _frontal_core(ds: DeviceState, plan: StepPlan):
 
     # ---------------- stacked square-root measurement rows
     # (aprilsam.c:508-542 as a QR factor update)
-    t = plan.tail
-    nf_a, nf_b = _dev(ds, t.nf_a), _dev(ds, t.nf_b)
-    nf_W = _dev(ds, t.nf_W, dtype)
-    ev = eval_xyt(ds.l_point, nf_a, nf_b, _dev(ds, t.nf_z, dtype), nf_W)
-    np_W = _dev(ds, t.np_W, dtype)
-    evp = eval_xytpos(ds.state, _dev(ds, t.np_node),
-                      _dev(ds, t.np_z, dtype), np_W)
+    nf_W, np_W = P["nf_W"], P["np_W"]
+    ev = eval_xyt(ds.l_point, P["nf_a"], P["nf_b"], P["nf_z"], nf_W)
+    evp = eval_xytpos(ds.state, P["np_node"], P["np_z"], np_W)
     # W^T/2 via the closed-form 3x3 Cholesky (reads the upper triangle
     # only); tiny jitter keeps PSD-singular priors finite
     Wh_xyt = chol3(nf_W, jitter=1e-12)
@@ -461,11 +531,11 @@ def _frontal_core(ds: DeviceState, plan: StepPlan):
     w_ok = _psd_ok(Wh_xyt, nf_W) & _psd_ok(Wh_pos, np_W)
 
     xyt_rows = _measurement_rows(
-        Wh_xyt, [(_dev(ds, plan.nf_a_slot), Wh_xyt @ ev.Ja),
-                 (_dev(ds, plan.nf_b_slot), Wh_xyt @ ev.Jb)], m, dtype, dev)
+        Wh_xyt, [(P["nf_a_slot"], Wh_xyt @ ev.Ja),
+                 (P["nf_b_slot"], Wh_xyt @ ev.Jb)], m, dtype, dev)
     xyt_rhs = (Wh_xyt @ ev.r[:, :, None]).reshape(-1)
     pos_rows = _measurement_rows(
-        Wh_pos, [(_dev(ds, plan.np_slot), Wh_pos)], m, dtype, dev)
+        Wh_pos, [(P["np_slot"], Wh_pos)], m, dtype, dev)
     pos_rhs = (Wh_pos @ evp.r[:, :, None]).reshape(-1)
 
     C = torch.cat([R_dense, xyt_rows, pos_rows], dim=0)
@@ -485,14 +555,14 @@ def _frontal_core(ds: DeviceState, plan: StepPlan):
     # ---------------- R' back on the NEW pattern: newblocks[r, b] =
     # Rt[r, front slot of new_ridx[r, b]], zero where the slot is padding
     Rt = R_up.reshape(m, 3, m, 3).permute(0, 2, 1, 3)
-    new_ridx = _dev(ds, plan.new_ridx)
+    new_ridx = P["new_ridx"]
     scat_fc = pos2f[new_ridx.clamp(0, NCAP)]
     Rt_p = torch.cat([Rt, torch.zeros(m, 1, 3, 3, dtype=dtype, device=dev)],
                      dim=1)
     ds.R_blocks[F_pos] = Rt_p[ar_m[:, None],
                               torch.where(scat_fc >= 0, scat_fc, m)]
     ds.R_idx[F_pos] = new_ridx
-    ds.R_nnz[F_pos] = _dev(ds, plan.new_nnz)
+    ds.R_nnz[F_pos] = P["new_nnz"]
     return R_up, y_new, spd, pos2f, F_pos
 
 
@@ -530,15 +600,16 @@ def _step_chi2(ds: DeviceState, log_chi2: bool):
                       device=ds.device)
 
 
-def _fast_body(ds: DeviceState, plan: StepPlan, delta_xy: float,
-               delta_theta: float, log_chi2: bool) -> torch.Tensor:
+def _fast_body(ds: DeviceState, plan: StepPlan, P: Dict[str, torch.Tensor],
+               delta_xy: float, delta_theta: float,
+               log_chi2: bool) -> torch.Tensor:
     NCAP = ds.state.shape[0]
-    R_up, y_new, spd, pos2f, _F = _frontal_core(ds, plan)
+    R_up, y_new, spd, pos2f, _F = _frontal_core(ds, plan, P)
 
     # back-substitution restricted to F (exact: F is ancestor-closed)
     dxF = torch.linalg.solve_triangular(
         R_up, y_new[:, None], upper=True).reshape(plan.m, 3)
-    ids_F = _dev(ds, plan.F_node)
+    ids_F = P["F_node"]
     already = ds.relinearized
     relF = _relin_mask(dxF, delta_xy, delta_theta)
     newly = (relF & ~already[ids_F]).sum()
@@ -549,13 +620,13 @@ def _fast_body(ds: DeviceState, plan: StepPlan, delta_xy: float,
     # (solve_node visits them once and prunes, aprilsam.c:752-771).  Their
     # resident rows are current; slot 0 is their own diagonal block.
     if len(plan.fringe_pos):
-        fr_pos = _dev(ds, plan.fringe_pos)
+        fr_pos = P["fringe_pos"]
         fr_rows = ds.R_blocks[fr_pos]                        # [FR, BCAP, 3, 3]
         fc = pos2f[ds.R_idx[fr_pos].clamp(0, NCAP)]          # [FR, BCAP]
         xw = torch.where((fc >= 0)[..., None], dxF[fc.clamp(min=0)], 0.0)
         off = torch.einsum("kbij,kbj->ki", fr_rows, xw)
         x_fr = solve_upper3(fr_rows[:, 0], ds.y[fr_pos] - off)
-        ids_fr = _dev(ds, plan.fringe_node)
+        ids_fr = P["fringe_node"]
         relfr = _relin_mask(x_fr, delta_xy, delta_theta)
         newly = newly + (relfr & ~already[ids_fr]).sum()
         already[ids_fr] = already[ids_fr] | relfr
@@ -571,6 +642,24 @@ def _fast_body(ds: DeviceState, plan: StepPlan, delta_xy: float,
     return _finish(ds, chi2, spd, plan.m > 0, log_chi2)
 
 
+def _refresh_nodes(ds: DeviceState, dx, member, delta_xy: float,
+                   delta_theta: float) -> None:
+    """State update of nodes [0, n) from their solution dx [n, 3] where
+    member [n, 1] (solve_node, aprilsam.c:721-779): relinearization
+    counting, state = l_point + dx, delta_X = dx."""
+    n = ds.nnodes
+    relin = _relin_mask(dx, delta_xy, delta_theta) & member[:, 0]
+    newly = (relin & ~ds.relinearized[:n]).sum()
+    ds.start_over = _saturated(ds.start_over) + newly
+    ds.relinearized[:n] |= relin
+
+    ok = member & ~torch.any(torch.isnan(dx), dim=1, keepdim=True)
+    new_state = ds.l_point[:n] + dx
+    new_state = torch.cat([new_state[:, :2], mod2pi(new_state[:, 2:])], dim=1)
+    ds.state[:n] = torch.where(ok, new_state, ds.state[:n])
+    ds.delta_X[:n] = torch.where(ok, dx, ds.delta_X[:n])
+
+
 def _global_sweep(ds: DeviceState, PANEL: int, NPANB: int,
                   delta_xy: float, delta_theta: float) -> DeviceState:
     """Whole-graph back-substitution x = R^{-1} y and the update of every
@@ -578,37 +667,173 @@ def _global_sweep(ds: DeviceState, PANEL: int, NPANB: int,
     NPANB active panels."""
     n = ds.nnodes
     x_pos = panel_backsub(ds.R_blocks, ds.R_idx, ds.y, n, PANEL, NPANB)
-    dx = x_pos[ds.pos[:n]]
-    relin = _relin_mask(dx, delta_xy, delta_theta)
-    newly = (relin & ~ds.relinearized[:n]).sum()
-    ds.start_over = _saturated(ds.start_over) + newly
-    ds.relinearized[:n] |= relin
-
-    ok = ~torch.any(torch.isnan(dx), dim=1)[:, None]
-    new_state = ds.l_point[:n] + dx
-    new_state = torch.cat([new_state[:, :2], mod2pi(new_state[:, 2:])], dim=1)
-    ds.state[:n] = torch.where(ok, new_state, ds.state[:n])
-    ds.delta_X[:n] = torch.where(ok, dx, ds.delta_X[:n])
+    every = torch.ones((n, 1), dtype=torch.bool, device=ds.device)
+    _refresh_nodes(ds, x_pos[ds.pos[:n]], every, delta_xy, delta_theta)
     return ds
 
 
-def _full_body(ds: DeviceState, plan: StepPlan, PANEL: int, NPANB: int,
-               delta_xy: float, delta_theta: float,
+def _windowed_sweep(ds: DeviceState, panels, live: Sequence[int],
+                    PANEL: int, delta_xy: float,
+                    delta_theta: float) -> DeviceState:
+    """Back-substitution and state update restricted to a panel WINDOW —
+    the reference's pruned tree-gated descent (solve_node,
+    aprilsam.c:721-779) at panel granularity.  `panels` [PW] holds
+    descending panel indices padded at the end with -1 (a tensor), `live`
+    the same without the padding (host).  Cost is O(PW), independent of
+    the trajectory length.  Nodes outside the window keep their states and
+    deltas; batch epochs and periodic full sweeps re-sync them."""
+    NCAP = ds.state.shape[0]
+    NPANMAX = NCAP // PANEL
+    n = ds.nnodes
+    # previous solution in POSITION space (delta_X is node-indexed)
+    x_prev = torch.zeros(NCAP, 3, dtype=ds.state.dtype, device=ds.device)
+    x_prev[:n] = ds.delta_X[ds.order[:n]]
+    x_pos = panel_backsub_windowed(ds.R_blocks, ds.R_idx, ds.y, x_prev,
+                                   panels, live, n, PANEL)
+    # window membership per node, by panel
+    pan_act = torch.zeros(NPANMAX + 1, dtype=torch.bool, device=ds.device)
+    pan_act.index_fill_(0, torch.where(panels >= 0, panels, NPANMAX), True)
+    pos = ds.pos[:n]
+    member = pan_act[(pos // PANEL).clamp(0, NPANMAX - 1)][:, None]
+    dx = torch.where(member, x_pos[pos], 0.0)
+    _refresh_nodes(ds, dx, member, delta_xy, delta_theta)
+    return ds
+
+
+def _full_body(ds: DeviceState, plan: StepPlan, P: Dict[str, torch.Tensor],
+               PANEL: int, NPANB: int, delta_xy: float, delta_theta: float,
                log_chi2: bool) -> torch.Tensor:
-    _R, _y, spd, _pos2f, _F = _frontal_core(ds, plan)
+    _R, _y, spd, _pos2f, _F = _frontal_core(ds, plan, P)
     _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
     chi2 = _step_chi2(ds, log_chi2)
     return _finish(ds, chi2, spd, plan.m > 0, log_chi2)
+
+
+# ----------------------------------------------------------------------
+# supersteps: a whole buffer of steps as ONE joint frontal update
+# ----------------------------------------------------------------------
+#
+# B sequential frontal updates with fixed linearization points compose:
+# after steps 1..B, R^T R = R_0^T R_0 + sum_i J_i^T W_i J_i whether the QRs
+# ran one by one or as ONE joint qr([R_Fu ; W^{1/2} J_all]) on the union
+# affected set Fu (a union of ancestor-closed sets is ancestor-closed, so
+# the joint front is self-contained like the per-step one).  l_points are
+# fixed within a buffer (updates move `state`; only batch epochs
+# relinearize), so the equivalence is exact in exact arithmetic.  The one
+# drift from per-step execution: a new node's odometry seed composes from
+# the PRE-superstep state of its chain's base node (the host pre-composes
+# the chains, IncrementalSolver._dispatch_superstep).  A superstep's stats
+# carry the post-sweep start_over; its chi2 is logged once, after the
+# sweep.
+
+
+def _sup_caps(cfg: SolverConfig) -> Tuple[int, int, int]:
+    """Capacities of a superstep plan: (knode, kseed, kfac)."""
+    S = cfg.superstep_size
+    return S + KNODE, S + KSEED, max(2 * S, cfg.new_factor_capacity)
+
+
+def _superstep_stats(ds: DeviceState, stats: torch.Tensor, live: bool,
+                     log_chi2: bool) -> torch.Tensor:
+    """Patch a superstep's stats after its sweep: stats[1] = start_over;
+    with log_chi2, log the chi2 once and put it in stats[0]."""
+    stats[1] = ds.start_over.to(stats.dtype)
+    if log_chi2 and live:
+        chi2 = state_chi2(ds)
+        if ds.log_ptr < ds.chi2_log.shape[0]:
+            ds.chi2_log[ds.log_ptr] = chi2
+        ds.log_ptr += 1
+        stats[0] = chi2
+    return stats
+
+
+def inc_superstep(ds: DeviceState, plan: StepPlan,
+                  P: Dict[str, torch.Tensor], PANEL: int, NPANB: int,
+                  delta_xy: float, delta_theta: float,
+                  log_chi2: bool) -> torch.Tensor:
+    """One joint frontal update over the union affected set of a buffer of
+    steps, then one whole-graph sweep that refreshes every node's state and
+    the relinearization counters."""
+    stats = _fast_body(ds, plan, P, delta_xy, delta_theta, False)
+    _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
+    return _superstep_stats(ds, stats, plan.m > 0, log_chi2)
+
+
+def inc_superstep_nosweep(ds: DeviceState, plan: StepPlan,
+                          P: Dict[str, torch.Tensor], delta_xy: float,
+                          delta_theta: float) -> torch.Tensor:
+    """A superstep WITHOUT the trailing sweep: the joint frontal update
+    solves the union front + fringe exactly (so the next buffer's odometry
+    seeds read post-front states); the refresh of the other nodes waits for
+    the next swept superstep (cfg.sweep_every_supersteps), a batch epoch or
+    flush()."""
+    return _fast_body(ds, plan, P, delta_xy, delta_theta, False)
+
+
+def sweep_only(ds: DeviceState, PANEL: int, NPANB: int, delta_xy: float,
+               delta_theta: float) -> DeviceState:
+    """Standalone whole-graph sweep (flush-time staleness clear for the
+    nosweep and windowed superstep modes)."""
+    return _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
+
+
+def inc_superstep_win(ds: DeviceState, plan: StepPlan,
+                      P: Dict[str, torch.Tensor], live: Sequence[int],
+                      PANEL: int, delta_xy: float, delta_theta: float,
+                      log_chi2: bool) -> torch.Tensor:
+    """inc_superstep with a WINDOWED sweep over the panels P["panels"]
+    ([PW], descending, padded with -1; `live` without the padding): O(PW)
+    per superstep instead of O(N / PANEL).  The large-N throughput mode."""
+    stats = _fast_body(ds, plan, P, delta_xy, delta_theta, False)
+    _windowed_sweep(ds, P["panels"], live, PANEL, delta_xy, delta_theta)
+    return _superstep_stats(ds, stats, plan.m > 0, log_chi2)
 
 
 # ======================================================================
 # solver
 # ======================================================================
 
+@dataclass
+class _Pending:
+    """A dispatch's policy stats on their way to the host."""
+
+    step: int
+    stats: torch.Tensor          # [3] on the host (pinned, from the card)
+    done: Optional["torch.cuda.Event"]  # the copy's event; None = on host
+    dispatched_after_batch: int  # batch-epoch serial at dispatch time
+    step_ms: float = 0.0         # wall-clock estimate for the deferred gate
+                                 # (dispatch-to-dispatch interval / steps;
+                                 # 0.0 = unknown, gate inactive)
+
+    def is_ready(self) -> bool:
+        return self.done is None or self.done.query()
+
+    def read(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.stats.numpy()
+
+
+def _stats_to_host(stats: torch.Tensor):
+    """Start the copy of a dispatch's stats to pinned host memory; returns
+    (host tensor, event that completes with the copy).  A CPU tensor is
+    already there."""
+    if stats.device.type != "cuda":
+        return stats, None
+    host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
+    host.copy_(stats, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 class IncrementalSolver:
     """Counterpart of the reference's incremental API: solve() runs a batch
     epoch, update() an AprilSAM incremental step with automatic batch
-    fallback, synchronously (the policy reads each step's stats)."""
+    fallback.  With cfg.policy_lag == 0 and superstep_size == 1 every step
+    is synchronous (update() returns its BatchInfo); otherwise the policy
+    reads each dispatch's stats policy_lag dispatches later, update() returns
+    None, and flush() ends a replay."""
 
     def __init__(self, cfg: Optional[SolverConfig] = None, device="cuda"):
         self.cfg = cfg or SolverConfig()
@@ -625,19 +850,38 @@ class IncrementalSolver:
         self.last_path = "none"
         self.last_naffected = 0
         self.steps_done = 0
-        self.counters = {"fast": 0, "full": 0, "batch": 0}
+        # dispatches by path, batch epochs, and in superstep mode the union
+        # front's size, the supersteps without a sweep, the windowed sweeps
+        # and the sweeps flush() ran
+        self.counters = {"fast": 0, "full": 0, "batch": 0, "superstep": 0,
+                         "sup_overflow": 0, "sup_m_max": 0, "sup_m_sum": 0,
+                         "sup_nosweep": 0, "sweep_win": 0, "sweep_flush": 0}
         self._batch_serial = 0
+        self._pending: deque = deque()
+        self._due_since_poll = 0
+        # buffered raw steps of a superstep: (f0, f1, n_old, n1, seeds, g)
+        self._sbuf: list = []
+        self._sbuf_counts = [0, 0, 0, 0]     # nodes, seeds, xyt, pos
+        # wall-clock of the previous dispatch: the dispatch-to-dispatch
+        # interval per step feeds the deferred batch_time/3 gate
+        # (aprilsam.c:557-559)
+        self._last_dispatch_t: Optional[float] = None
+        self._sweep_stale = False     # nodes outside the last fronts are
+        self._sup_since_sweep = 0     # behind (nosweep / windowed modes)
+        self._sweep_serial = 0
         # the pure-python planner in place of the native one (tests)
         self.python_planner = False
         self.tp = TimeProfile() if self.cfg.show_timing else None
 
     # ---------------------------------------------------------------
 
-    def _ingest(self, g: FactorGraph):
+    def _ingest(self, g: FactorGraph, to_node: int = None,
+                to_factor: int = None):
         self.ds = ingest_graph(self.ds, g, self.cfg, self._ingested_nodes,
-                               self._ingested_factors)
-        self._ingested_nodes = g.nnodes
-        self._ingested_factors = g.nfactors
+                               self._ingested_factors, to_node, to_factor)
+        self._ingested_nodes = g.nnodes if to_node is None else to_node
+        self._ingested_factors = (g.nfactors if to_factor is None
+                                  else to_factor)
 
     def _apply_seeds(self, seeds: Sequence[SeedSpec]):
         """Odometry seeding outside the step (the fallback path for tails
@@ -652,25 +896,30 @@ class IncrementalSolver:
             ds.state[s.dst] = seeded
             ds.l_point[s.dst] = seeded
 
-    def _ingest_tail_fast(self, g: FactorGraph,
-                          seeds: Sequence[SeedSpec]) -> bool:
+    def _ingest_tail_fast(self, g: FactorGraph, seeds: Sequence[SeedSpec],
+                          caps: Optional[Tuple[int, int, int]] = None,
+                          limits: Optional[Tuple[int, int]] = None) -> bool:
         """Ingest the un-ingested tail + seeds as one step payload, for the
         plan-overflow batch path.  Returns False when the tail exceeds the
-        step capacities (the caller then uses _ingest + _apply_seeds)."""
+        capacities `caps` = (knode, kseed, kfac), default the per-step ones
+        (the caller then uses _ingest + _apply_seeds).  `limits` = (n_end,
+        f_end) bounds the tail (a superstep's buffered span)."""
+        knode, kseed, K = caps or (KNODE, KSEED,
+                                   self.cfg.new_factor_capacity)
         n0, f0 = self._ingested_nodes, self._ingested_factors
-        new_ids = list(range(n0, g.nnodes))
+        n_end, f_end = limits or (g.nnodes, g.nfactors)
+        new_ids = list(range(n0, n_end))
         seeds = _dedup_seeds(seeds)
         dsts = {s.dst for s in seeds}
-        if (len(new_ids) > KNODE or len(seeds) > KSEED
+        if (len(new_ids) > knode or len(seeds) > kseed
                 or any(s.src in dsts for s in seeds)):
             return False
-        tail = step_tail(g, f0, g.nfactors, new_ids, seeds)
-        K = self.cfg.new_factor_capacity
+        tail = step_tail(g, f0, f_end, new_ids, seeds)
         if len(tail.nf_a) > K or len(tail.np_node) > K:
             return False
-        inc_ingest_tail(self.ds, tail)
-        self._ingested_nodes = g.nnodes
-        self._ingested_factors = g.nfactors
+        inc_ingest_tail(self.ds, tail, tail_tensors(self.ds, tail))
+        self._ingested_nodes = n_end
+        self._ingested_factors = f_end
         return True
 
     def _grow_row_capacity(self):
@@ -706,6 +955,8 @@ class IncrementalSolver:
         while need_f > fcap or need_p > max(256, fcap // 8):
             fcap *= 2
 
+        # buffered steps land in the old-capacity state first
+        self._dispatch_superstep()
         old = state_to_numpy(self.ds)
         old_ncap = cfg.node_capacity
         self.cfg = dataclasses.replace(cfg, node_capacity=ncap,
@@ -732,10 +983,17 @@ class IncrementalSolver:
             sym.pad_nnz = None
 
     def _run_batch(self, g: FactorGraph, record_time: bool = False,
-                   log_mode: int = 0) -> BatchInfo:
+                   log_mode: int = 0, nnodes: int = None,
+                   nfactors: int = None) -> BatchInfo:
+        """A batch epoch over the first nnodes/nfactors of g (default all;
+        a superstep's union-overflow fallback bounds it to the buffered
+        span, because the device tables may not yet hold the caller's
+        pending step).  Buffered steps logically precede the epoch."""
         from .host_batch import host_batch_epoch
 
-        nn, nf = g.nnodes, g.nfactors
+        self._dispatch_superstep()
+        nn = g.nnodes if nnodes is None else nnodes
+        nf = g.nfactors if nfactors is None else nfactors
         t0 = time.perf_counter()
         while True:
             try:
@@ -755,9 +1013,12 @@ class IncrementalSolver:
             # param->batch_time is recorded only when a batch is triggered
             # from the incremental path (aprilsam.c:568-572)
             self.batch_time_ms = (time.perf_counter() - t0) * 1e3
+        # the next dispatch interval would include this epoch's time
+        self._last_dispatch_t = None
         self.factor_num = max(self.factor_num, nf)
         self.node_num = max(self.node_num, nn)
         self.last_path = "batch"
+        self._sweep_stale = False
         self._batch_serial += 1
         self.counters["batch"] += 1
         return info
@@ -787,20 +1048,83 @@ class IncrementalSolver:
         if self.cfg.check_spd and not spd:
             start_over = INT_MAX
         if start_over > self.cfg.nthreshold:           # aprilsam.c:566-575
-            # the epoch's chi2 replaces the triggering step's ring entry
-            return self._run_batch(g, record_time=True, log_mode=1)
+            # synchronous: the epoch's chi2 replaces the triggering step's
+            # ring entry; lagged: the ring is left alone
+            mode = 1 if self.cfg.policy_lag == 0 else 2
+            return self._run_batch(g, record_time=True, log_mode=mode)
         return None
 
+    def _drain_pending(self, g: FactorGraph, block_all: bool = False):
+        """Pop the due pending entries and apply the batch-fallback policy.
+
+        The device counters are cumulative (start_over monotone since the
+        last batch, spd AND-folded), so only ONE due entry is ever read, and
+        cfg.policy_poll rations even those reads: the newest entry whose
+        stats have reached the host, else the oldest due entry (the shortest
+        wait).  The wall-clock gate (aprilsam.c:557-559) reads no stats: it
+        runs on the host-recorded dispatch intervals of every due entry."""
+        lag = self.cfg.policy_lag
+        due = []
+        while self._pending and (block_all or len(self._pending) > lag):
+            due.append(self._pending.popleft())
+        if not due:
+            return
+        self._due_since_poll += len(due)
+        fresh = [p for p in due
+                 if p.dispatched_after_batch == self._batch_serial]
+        if not fresh:
+            return
+        mode = 1 if lag == 0 else 2
+        if (self.cfg.wallclock_gate and self.batch_time_ms > 0.0 and
+                any(p.step_ms > 0.0 and p.step_ms >
+                    self.batch_time_ms * self.cfg.batch_time_fraction
+                    for p in fresh)):
+            self._due_since_poll = 0
+            self._run_batch(g, record_time=True, log_mode=mode)
+            return
+        if block_all or self._due_since_poll >= self.cfg.policy_poll:
+            if block_all:
+                p = fresh[-1]
+            else:
+                ready = [q for q in fresh if q.is_ready()]
+                p = ready[-1] if ready else fresh[0]
+            self._due_since_poll = 0
+            self._apply_policy(p.read(), p.dispatched_after_batch, 0.0, g)
+
+    def _defer(self, stats: torch.Tensor, k: int) -> None:
+        """Queue a dispatch's stats (covering k steps) for the lagged
+        policy."""
+        host, done = _stats_to_host(stats)
+        self._pending.append(_Pending(
+            self.steps_done - 1, host, done, self._batch_serial,
+            step_ms=self._mark_dispatch(k)))
+
+    def _mark_dispatch(self, k: int) -> float:
+        """Advance the dispatch clock; return the per-step wall-clock
+        estimate (previous dispatch-to-dispatch interval / k)."""
+        now = time.perf_counter()
+        step_ms = 0.0
+        if self._last_dispatch_t is not None and k > 0:
+            step_ms = (now - self._last_dispatch_t) * 1e3 / k
+        self._last_dispatch_t = now
+        return step_ms
+
     def update(self, g: FactorGraph,
-               seeds: Sequence[SeedSpec] = ()) -> BatchInfo:
-        """Incremental update (april_graph_cholesky_inc), synchronous:
-        returns the step's BatchInfo."""
+               seeds: Sequence[SeedSpec] = ()) -> Optional[BatchInfo]:
+        """Incremental update (april_graph_cholesky_inc).  Synchronous
+        (policy_lag == 0, no supersteps): returns the step's BatchInfo.
+        Otherwise returns None, and the policy applies as stats arrive
+        (flush() at the end of a replay)."""
         if g.nnodes == 0 or g.nfactors == 0:
             return BatchInfo(chi2=0.0, spd=True, n=0)
         if self.sym is None or self.factor_num == g.nfactors:
-            # guards (aprilsam.c:380-385)
+            # guards (aprilsam.c:380-385); buffered steps land first
+            self._dispatch_superstep()
             return BatchInfo(chi2=float(state_chi2(self.ds)), spd=True, n=0)
         self._maybe_grow_capacity(g)
+
+        if self.cfg.superstep_size > 1:
+            return self._update_superstep(g, seeds)
 
         if self.tp is not None:
             self.tp.reset()
@@ -832,6 +1156,12 @@ class IncrementalSolver:
                 and not plan.fringe_overflow)
         stats = self._dispatch_one(plan, fast, self._npanb(g.nnodes))
         self.steps_done += 1
+        if self.cfg.policy_lag > 0:
+            self._defer(stats, 1)
+            if self.tp is not None:
+                self.tp.stamp("dispatch")
+            self._drain_pending(g)
+            return None
         s = stats.cpu().numpy()
         if self.tp is not None:
             self.tp.stamp("dispatch")
@@ -846,10 +1176,11 @@ class IncrementalSolver:
         cfg = self.cfg
         self.last_path = "fast" if fast else "full"
         self.counters[self.last_path] += 1
+        P = plan_tensors(self.ds, plan)
         if fast:
-            return _fast_body(self.ds, plan, float(cfg.delta_xy),
+            return _fast_body(self.ds, plan, P, float(cfg.delta_xy),
                               float(cfg.delta_theta), cfg.log_chi2)
-        return _full_body(self.ds, plan, cfg.panel_nodes, npanb,
+        return _full_body(self.ds, plan, P, cfg.panel_nodes, npanb,
                           float(cfg.delta_xy), float(cfg.delta_theta),
                           cfg.log_chi2)
 
@@ -863,18 +1194,180 @@ class IncrementalSolver:
             b *= 2
         return min(b, NPAN)
 
+    # ------------------------------------------------------- supersteps
+
+    def _update_superstep(self, g: FactorGraph,
+                          seeds: Sequence[SeedSpec]) -> None:
+        """Buffer one raw step; dispatch the buffer as ONE joint frontal
+        update when it reaches superstep_size (or would overflow a
+        capacity)."""
+        knode, kseed, kfac = _sup_caps(self.cfg)
+        f0, f1 = self.factor_num, g.nfactors
+        n_old = self.node_num
+        n_new = g.nnodes - n_old
+        nx = int(np.sum(g.ftype[f0:f1] == FACTOR_XYT))
+        npz = (f1 - f0) - nx
+        if n_new > knode or len(seeds) > kseed or nx > kfac or npz > kfac:
+            raise OverflowError("single step exceeds superstep capacities")
+        c = self._sbuf_counts
+        if self._sbuf and (c[0] + n_new > knode or c[1] + len(seeds) > kseed
+                           or c[2] + nx > kfac or c[3] + npz > kfac):
+            self._dispatch_superstep()
+        self._sbuf.append((f0, f1, n_old, g.nnodes, list(seeds), g))
+        c = self._sbuf_counts
+        c[0] += n_new
+        c[1] += len(seeds)
+        c[2] += nx
+        c[3] += npz
+        self.factor_num = f1
+        self.node_num = g.nnodes
+        self.steps_done += 1
+        self.last_path = "super"
+        if len(self._sbuf) >= self.cfg.superstep_size:
+            self._dispatch_superstep()
+            if self.tp is not None:
+                self.tp.stamp("dispatch_super")
+        self._drain_pending(g)
+        return None
+
+    @staticmethod
+    def _compose_seeds(entries) -> List[SeedSpec]:
+        """Pre-compose the buffer's seed chains on the host, so that every
+        seed is one hop from a node whose state is current when the
+        superstep starts (a node from before the buffer, or a new node
+        ingested unseeded): state[dst] = state[base] (+) (z_1 (+) ... (+)
+        z_j), exact since xyt composition is associative.  Last wins per
+        dst.  Scalar float64, the formulas of geometry.np_xyt_mul and
+        np_xyt_inv."""
+        cur = {}
+        for (_f0, _f1, _n0, _n1, seeds, _g) in entries:
+            for s in seeds:
+                zx, zy, zt = float(s.z[0]), float(s.z[1]), float(s.z[2])
+                if s.invert:
+                    si, ci = math.sin(zt), math.cos(zt)
+                    zx, zy, zt = (-si * zy - ci * zx,
+                                  -ci * zy + si * zx, -zt)
+                if s.src in cur:
+                    base, (ax, ay, at) = cur[s.src]
+                    s2, c2 = math.sin(at), math.cos(at)
+                    cur[s.dst] = (base, (c2 * zx - s2 * zy + ax,
+                                         s2 * zx + c2 * zy + ay, at + zt))
+                else:
+                    cur[s.dst] = (int(s.src), (zx, zy, zt))
+        return [SeedSpec(src=b, dst=int(d),
+                         z=np.asarray(zc, dtype=np.float64), invert=False)
+                for d, (b, zc) in cur.items()]
+
+    def _dispatch_superstep(self) -> None:
+        """Plan + dispatch the buffered steps as one joint frontal update
+        on the union affected set; a union beyond the largest bucket falls
+        back to a batch epoch (the reference's full-batch branch)."""
+        if not self._sbuf:
+            return
+        entries, self._sbuf = self._sbuf, []
+        self._sbuf_counts = [0, 0, 0, 0]
+        g = entries[-1][5]
+        f0, n_old = entries[0][0], entries[0][2]
+        f1, n1 = entries[-1][1], entries[-1][3]
+        k = len(entries)
+        seeds_u = self._compose_seeds(entries)
+
+        cfg = self.cfg
+        knode, kseed, kfac = _sup_caps(cfg)
+        if self.tp is not None:
+            self.tp.reset()
+        try:
+            plan = plan_step(self.sym, cfg, g, f0, f1, n_old, seeds_u,
+                             python_planner=self.python_planner,
+                             knode=knode, kseed=kseed, kfac=kfac,
+                             buckets=cfg.effective_superstep_buckets,
+                             n_end=n1)
+        except OverflowError:
+            plan = None
+        if self.tp is not None:
+            self.tp.stamp("plan_super")
+        if plan is None:
+            # union beyond the largest bucket -> batch fallback, bounded to
+            # the buffered span (a capacity flush dispatches while the
+            # caller's current step is still outside the buffer)
+            self.counters["sup_overflow"] += 1
+            if not self._ingest_tail_fast(g, seeds_u,
+                                          caps=(knode, kseed, kfac),
+                                          limits=(n1, f1)):
+                self._ingest(g, to_node=n1, to_factor=f1)
+                self._apply_seeds(seeds_u)
+            self._run_batch(g, record_time=True, nnodes=n1, nfactors=f1)
+            return
+        self._ingested_nodes = n1
+        self._ingested_factors = f1
+        self.last_naffected = plan.naffected
+        self.counters["superstep"] += 1
+        self.counters["sup_m_sum"] += plan.m
+        self.counters["sup_m_max"] = max(self.counters["sup_m_max"], plan.m)
+        dxy, dth = float(cfg.delta_xy), float(cfg.delta_theta)
+
+        # sweep cadence: only every K-th superstep sweeps
+        cadence = max(1, cfg.sweep_every_supersteps)
+        if cadence > 1 and self._sup_since_sweep + 1 < cadence:
+            self._sup_since_sweep += 1
+            self._sweep_stale = True
+            self.counters["sup_nosweep"] += 1
+            stats = inc_superstep_nosweep(
+                self.ds, plan, plan_tensors(self.ds, plan), dxy, dth)
+            self._defer(stats, k)
+            return
+        self._sup_since_sweep = 0
+
+        # windowed sweep: refresh only the panels the union front + fringe
+        # touch, unless the window overflows or a periodic full re-sync is
+        # due
+        PW = cfg.sweep_window_panels
+        win = None
+        if PW > 0:
+            self._sweep_serial += 1
+            periodic = (cfg.sweep_full_every > 0 and
+                        self._sweep_serial % cfg.sweep_full_every == 0)
+            pans = np.unique(np.concatenate(
+                [plan.F_pos, plan.fringe_pos]) // cfg.panel_nodes)
+            if not periodic and len(pans) <= PW:
+                win = np.full(PW, -1, dtype=np.int64)
+                win[:len(pans)] = pans[::-1]               # descending
+        if win is not None:
+            self._sweep_stale = True
+            self.counters["sweep_win"] += 1
+            stats = inc_superstep_win(
+                self.ds, plan, plan_tensors(self.ds, plan, panels=win),
+                win[:len(pans)].tolist(), cfg.panel_nodes, dxy, dth,
+                cfg.log_chi2)
+        else:
+            self._sweep_stale = False
+            stats = inc_superstep(
+                self.ds, plan, plan_tensors(self.ds, plan), cfg.panel_nodes,
+                self._npanb(g.nnodes), dxy, dth, cfg.log_chi2)
+        self._defer(stats, k)
+
     def flush(self, g: FactorGraph) -> None:
-        """End of a replay.  The synchronous path applies every policy
-        decision inside update(), so nothing is pending; kept so replay
-        drivers need not know the mode."""
+        """End of a replay: dispatch the buffered steps, clear any sweep
+        staleness with one whole-graph sweep, and apply the policy to
+        every pending entry."""
+        self._dispatch_superstep()
+        if self._sweep_stale:
+            self.counters["sweep_flush"] += 1
+            sweep_only(self.ds, self.cfg.panel_nodes,
+                       self._npanb(g.nnodes), float(self.cfg.delta_xy),
+                       float(self.cfg.delta_theta))
+            self._sweep_stale = False
+        self._drain_pending(g, block_all=True)
 
     # ---------------------------------------------------------------
 
     def chi2(self) -> float:
+        self._dispatch_superstep()
         return float(state_chi2(self.ds))
 
     def chi2_history(self) -> np.ndarray:
         """Per-optimize chi2 values from the metric ring."""
+        self._dispatch_superstep()
         n = self.ds.log_ptr
         LOG = self.ds.chi2_log.shape[0]
         if n > LOG:
@@ -885,6 +1378,7 @@ class IncrementalSolver:
         return self.ds.chi2_log[:n].cpu().numpy()
 
     def sync_states(self, g: FactorGraph) -> None:
+        self._dispatch_superstep()
         n = g.nnodes
         g.state[:n] = self.ds.state[:n].cpu().numpy().astype(np.float64)
         g.l_point[:n] = self.ds.l_point[:n].cpu().numpy().astype(np.float64)

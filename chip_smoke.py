@@ -25,20 +25,41 @@ and prints no result line):
      per-step chi2 and the fast/full/batch census; the tri_inv launch
      count of that run, and the sum of its counts by shape, equal its
      full-path dispatches;
-  6. one JSON line listing every ported kernel, with K1's launches by shape
-     and their launch-weighted kernel and library times; the card's line;
-     and the result line {"ok": true, "device": {...}}.
+  6. the throughput replays of the same graph, float64, in deferred mode
+     at superstep_size=96 with the bench's union buckets, held against the
+     JAX package's superstep golden: at policy_lag=0 (log_chi2 on) every
+     metric-ring entry within relative 1e-6 and the counters equal; the
+     bench config (policy_lag=3, policy_poll=2, log_chi2 off), then with
+     the windowed sweep (8 panels, a full sweep every 8th), final chi2
+     within 0.05 of the JAX package's; poses/s, the counters, and the
+     synchronizing CUDA calls inside each superstep dispatch
+     (torch.cuda.set_sync_debug_mode), listed by call site, which must be
+     none; tri_inv launches equal the swept supersteps plus flush()'s
+     sweeps;
+  7. the CLI on the card: the graph written with the port's binary writer,
+     then cli.main --graphpath --superstep 96 (the CLI's config:
+     policy_lag=2, the default ladder), final chi2 within 0.05 of the JAX
+     package's;
+  8. one JSON line listing every ported kernel, with K1's launches on each
+     path and by shape, and their launch-weighted kernel and library
+     times; the card's line; and the result line
+     {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -47,6 +68,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
                       "manhattan3500_seed0.txt")
+SUPER_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
+                            "manhattan3500_seed0_super96.txt")
+CHI2_BAND = 0.05   # the JAX package's own band for lagged superstep runs
 
 # Published peaks (NVIDIA data sheets, dense), keyed by the exact name
 # torch.cuda.get_device_name reports: memory bytes/s, and the float64 (FP64
@@ -336,6 +360,176 @@ def run_main_path(K, card: str) -> tuple:
     return launches, by_shape
 
 
+def read_super_golden():
+    """The superstep golden: its header ({key: json}) and ring entries."""
+    head, ring = {}, []
+    with open(SUPER_GOLDEN) as f:
+        for line in f:
+            if line.startswith("# "):
+                key, _, val = line[2:].partition(" ")
+                if val.startswith("{"):
+                    head[key] = json.loads(val)
+                continue
+            ring.append(float(line.split()[1]))
+    return head, np.asarray(ring)
+
+
+def golden_config(entry: dict):
+    from aprilsam_tpu_torch.solver import SolverConfig
+
+    kw = dict(entry["config"])
+    if "superstep_buckets" in kw:
+        kw["superstep_buckets"] = tuple(kw["superstep_buckets"])
+    return SolverConfig(**kw)
+
+
+class SyncCounter:
+    """Records every synchronizing CUDA call (torch.cuda.set_sync_debug_mode
+    "warn") made inside the solver's superstep dispatches, by call site;
+    batch epochs (a union-overflow fallback, or one the policy fires) and
+    the policy's reads of the stats are not counted."""
+
+    def __init__(self, solver):
+        self.dispatches = 0
+        self.sites = Counter()
+        dispatch, batch = solver._dispatch_superstep, solver._run_batch
+
+        def counted_dispatch():
+            if not solver._sbuf:
+                return dispatch()
+            self.dispatches += 1
+            mode = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    dispatch()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            for w in caught:
+                if "synchroniz" in str(w.message):
+                    site = os.path.relpath(w.filename, REPO)
+                    self.sites[f"{site}:{w.lineno}"] += 1
+
+        def uncounted_batch(*args, **kw):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return batch(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        solver._dispatch_superstep = counted_dispatch
+        solver._run_batch = uncounted_batch
+
+    def summary(self) -> dict:
+        total = sum(self.sites.values())
+        return {"dispatches": self.dispatches, "syncs": total,
+                "syncs_per_dispatch": total / max(self.dispatches, 1),
+                "sites": dict(self.sites)}
+
+
+def run_superstep(K, card: str, name: str, entry: dict,
+                  ring=None) -> tuple:
+    """Phase 6, one config: the replay of manhattan_world(3500, seed=0) in
+    deferred mode on the card.  With `ring`, every metric-ring entry is
+    held to relative 1e-6 and the counters to the golden's; otherwise the
+    final chi2 to CHI2_BAND.  Returns the tri_inv launches by shape."""
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+
+    loaded = manhattan_world(3500, seed=0)
+    rep = Replay(loaded, golden_config(entry), deferred=True, device="cuda")
+    solver = rep.solver
+    syncs = SyncCounter(solver)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, by_shape = K.launches, dict(K.launches_by_shape)
+    final = solver.chi2()
+    c = solver.counters
+    swept = c["superstep"] - c["sup_nosweep"] + c["sweep_flush"]
+    summary = {
+        "phase": f"superstep-{name}", "card": card,
+        "config": entry["config"], "steps": loaded.nnodes,
+        "seconds": secs, "poses_per_s": loaded.nnodes / secs,
+        "final_chi2": final, "counters": c,
+        "golden_counters": entry.get("counters"),
+        "sync_debug": syncs.summary(), "tri_inv_launches": launches,
+        "tri_inv_launches_by_shape": [
+            {"shape": [B, N, N], "dtype": dt, "launches": n}
+            for (B, N, dt), n in sorted(by_shape.items())]}
+    bad = []
+    if ring is not None:
+        hist = solver.chi2_history()
+        summary["ring_entries"] = len(hist)
+        if hist.shape == ring.shape:
+            err = np.abs(hist - ring) / np.maximum(np.abs(ring), 1e-12)
+            summary["max_rel_ring_err"] = float(np.max(err))
+            if np.any(np.abs(hist - ring) > 1e-6 * np.abs(ring) + 1e-12):
+                bad.append(f"ring entry {int(np.argmax(err))} differs")
+        else:
+            bad.append(f"{hist.shape} ring entries, golden {ring.shape}")
+        diff = {k: (c.get(k, 0), v) for k, v in entry["counters"].items()
+                if c.get(k, 0) != v}
+        if diff:
+            bad.append(f"counters differ (port, golden): {diff}")
+    else:
+        want = entry["final_chi2"]
+        summary["golden_final_chi2"] = want
+        if not abs(final - want) < CHI2_BAND:
+            bad.append(f"final chi2 {final!r} vs {want!r}")
+    print(json.dumps(summary), flush=True)
+    if not np.isfinite(final):
+        bad.append("non-finite final chi2")
+    if syncs.sites:
+        bad.append(f"synchronizing calls in superstep dispatches: "
+                   f"{dict(syncs.sites)}")
+    if launches != swept or sum(by_shape.values()) != launches:
+        bad.append(f"tri_inv launched {launches} times for {swept} sweeps")
+    if name == "windowed":
+        wins = by_shape.get((8, 384, "float64"), 0)
+        if c["sweep_win"] == 0 or wins < c["sweep_win"]:
+            bad.append(f"{c['sweep_win']} windowed sweeps, {wins} tri_inv "
+                       "launches at [8,384,384]")
+    if bad:
+        raise AssertionError(f"superstep {name}: " + "; ".join(bad))
+    return by_shape
+
+
+def run_graphpath(K, card: str, entry: dict) -> dict:
+    """Phase 7: the CLI on the card, reading the graph through the port's
+    binary (stype) writer and reader."""
+    from aprilsam_tpu_torch import cli
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.io import save_graph_file
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "manhattan3500.graph")
+        save_graph_file(manhattan_world(3500, seed=0), path)
+        out = io.StringIO()
+        K.reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--graphpath", path, "--superstep", "96",
+                           "--dtype", "float64", "--no_wallclock_gate",
+                           "--device", "cuda", "--quiet", "--json"])
+    by_shape = dict(K.launches_by_shape)
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    want = entry["final_chi2"]
+    print(json.dumps({"phase": "cli-graphpath", "card": card, **res,
+                      "golden_final_chi2": want,
+                      "tri_inv_launches": K.launches}), flush=True)
+    if rc != 0 or not abs(res["final_chi2"] - want) < CHI2_BAND:
+        raise AssertionError(f"cli --graphpath: rc {rc}, final chi2 "
+                             f"{res['final_chi2']!r} vs {want!r}")
+    if K.launches == 0:
+        raise AssertionError("cli --graphpath never launched tri_inv")
+    return by_shape
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -382,35 +576,50 @@ def main() -> int:
     launches, by_shape = run_main_path(K, smi)
     if launches == 0:
         raise AssertionError("the main path never launched tri_inv")
+    paths = {"per-step": by_shape}
 
-    # 6. the kernels line, the card, the result; K1's share of the replay
+    # 6-7. the throughput replays, then the CLI with --graphpath
+    head, ring = read_super_golden()
+    paths["superstep-ring"] = run_superstep(K, smi, "ring", head, ring)
+    for name in ("bench", "windowed"):
+        paths[f"superstep-{name}"] = run_superstep(K, smi, name, head[name])
+    paths["cli-graphpath"] = run_graphpath(K, smi, head["cli"])
+
+    # 8. the kernels line, the card, the result; K1's share of each replay
     # is its launches at each shape times that shape's time from phase 3
-    for key in by_shape:
-        if key not in rows:
-            B, N, dt = key
-            rows[key] = measure_tri_inv(K, peaks, B, N, getattr(torch, dt))
-    replay_shapes = [{
-        "shape": rows[key]["shape"], "dtype": rows[key]["dtype"],
-        "launches": c, "ms": rows[key]["kernel_ms"],
-        "library_ms": rows[key]["library_ms"],
-        "bound_ms": rows[key]["bound_us"] / 1e3}
-        for key, c in sorted(by_shape.items())]
+    for counts in paths.values():
+        for key in counts:
+            if key not in rows:
+                B, N, dt = key
+                rows[key] = measure_tri_inv(K, peaks, B, N,
+                                            getattr(torch, dt))
+
+    def weighted(counts):
+        shapes = [{
+            "shape": rows[key]["shape"], "dtype": rows[key]["dtype"],
+            "launches": c, "ms": rows[key]["kernel_ms"],
+            "library_ms": rows[key]["library_ms"],
+            "bound_ms": rows[key]["bound_us"] / 1e3}
+            for key, c in sorted(counts.items())]
+        return {"launches": sum(counts.values()), "shapes": shapes,
+                "kernel_ms": sum(r["launches"] * r["ms"] for r in shapes),
+                "library_ms": sum(r["launches"] * r["library_ms"]
+                                  for r in shapes)}
+
+    by_path = {name: weighted(counts) for name, counts in paths.items()}
     print(json.dumps({"kernels": [{
         "name": "tri_inv", "route": "cuda",
         "source": "aprilsam_tpu_torch/csrc/tri_inv.cu",
-        "replaces": K.REPLACES, "launches": launches,
+        "replaces": K.REPLACES,
+        "launches": sum(v["launches"] for v in by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": main_row["max_abs_err"],
         "max_rel_err": main_row["max_rel_err"],
         "shape": main_row["shape"], "dtype": main_row["dtype"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_us"] / 1e3,
         "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "replay_shapes": replay_shapes,
-        "replay_kernel_ms": sum(r["launches"] * r["ms"]
-                                for r in replay_shapes),
-        "replay_library_ms": sum(r["launches"] * r["library_ms"]
-                                 for r in replay_shapes)}]}), flush=True)
+        "library_ms": main_row["library_ms"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,8 +3,10 @@
     python3 profile_torch_replay.py
 
 Replays manhattan_world(3500, seed=0) through aprilsam_tpu_torch's Replay on
-the card in float64 (default SolverConfig, wall-clock gate off, per-stage
-timing on), the smoke run's main path, and prints JSON lines:
+the card in float64, twice, and prints JSON lines.
+
+First the per-step replay (default SolverConfig, wall-clock gate off,
+per-stage timing on), the smoke run's main path:
   * "paths": step count, mean and total host milliseconds of the fast, full
     and batch steps, outside the profiled window;
   * "stages": host milliseconds per solver stage (plan = host planning,
@@ -13,6 +15,17 @@ timing on), the smoke run's main path, and prints JSON lines:
   * "window": torch.profiler over steps [2000, 2300): wall seconds, device busy
     milliseconds (the sum of device-side self time, one stream), the idle
     share, device events per step, and the ten largest device operations.
+
+Then the throughput replay in the bench's config (superstep_size=96 with
+the bench's union buckets, policy_lag=3, policy_poll=2, log_chi2 off),
+twice, one "superstep" line.  First with the profiler off and the host
+clock around each stage ("timed": host milliseconds in the superstep
+dispatches, and within them in plan_step (the union's planning),
+plan_tensors (the upload), _frontal_core (gather, measurement rows, QR,
+writeback), torch.linalg.qr and _global_sweep; and in batch epochs).  Then
+profiled whole: wall seconds and poses/s, device busy milliseconds, the
+idle share, device events per superstep, and the ten largest device
+operations.
 Needs a card; exits 1 without one.
 """
 
@@ -38,6 +51,89 @@ def _device_self_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+def device_rows(prof) -> list:
+    """(name, device self µs, count) of the device-side rows (kernels,
+    copies, sets), largest first, so no time counts twice."""
+    ka = [e for e in prof.key_averages()
+          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    if not ka:
+        raise RuntimeError("the profiler recorded no device-side rows")
+    return sorted(((e.key, _device_self_us(e), e.count) for e in ka
+                   if _device_self_us(e) > 0), key=lambda r: -r[1])
+
+
+def top(dev) -> list:
+    return [{"op": k[:80], "ms": us / 1e3, "count": c}
+            for k, us, c in dev[:10]]
+
+
+def profile_superstep() -> None:
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+    from aprilsam_tpu_torch.solver import SolverConfig
+    from aprilsam_tpu_torch.solver import incremental
+
+    cfg = SolverConfig(wallclock_gate=False, dtype=np.float64,
+                       superstep_size=96, policy_lag=3, policy_poll=2,
+                       log_chi2=False,
+                       superstep_buckets=(64, 128, 256, 384, 640, 1024))
+    graph = manhattan_world(POSES, seed=0)
+
+    def replay():
+        rep = Replay(graph, cfg, deferred=True, device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rep.run()
+        torch.cuda.synchronize()
+        return rep.solver, time.perf_counter() - t
+
+    # 1. the host's split, profiler off: wrap the stages of a superstep
+    # dispatch (module functions are looked up at call time)
+    host_ms = defaultdict(float)
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                host_ms[name] += (time.perf_counter() - t) * 1e3
+        return run
+
+    stages = [(incremental, "plan_step"), (incremental, "plan_tensors"),
+              (incremental, "_frontal_core"), (incremental, "_global_sweep"),
+              (incremental.IncrementalSolver, "_dispatch_superstep"),
+              (incremental.IncrementalSolver, "_run_batch"),
+              (torch.linalg, "qr")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in stages]
+    for obj, name, fn in saved:
+        setattr(obj, name, timed(name.lstrip("_"), fn))
+    try:
+        solver, secs = replay()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    timed_line = {"seconds": secs, "poses_per_s": POSES / secs,
+                  "host_ms": dict(host_ms)}
+
+    # 2. the device, profiler on
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solver, t_all = replay()
+    dev = device_rows(prof)
+    busy_ms = sum(us for _k, us, _c in dev) / 1e3
+    n_sup = solver.counters["superstep"]
+    print(json.dumps({"superstep": {
+        "card": torch.cuda.get_device_name(0), "config": "bench",
+        "timed": timed_line, "seconds": t_all,
+        "poses_per_s": POSES / t_all, "final_chi2": solver.chi2(),
+        "counters": solver.counters, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / (t_all * 1e3),
+        "device_events_per_superstep": sum(c for _k, _us, c in dev) / n_sup,
+        "top": top(dev)}}), flush=True)
 
 
 def main() -> int:
@@ -92,13 +188,7 @@ def main() -> int:
             "total_ms": float(np.sum(v))} for p, v in sorted(paths.items())}}))
     print(json.dumps({"stages_ms": dict(stages)}))
 
-    # device-side rows only (kernels, copies, sets), so no time counts twice
-    ka = [e for e in prof.key_averages()
-          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    if not ka:
-        raise RuntimeError("the profiler recorded no device-side rows")
-    dev = sorted(((e.key, _device_self_us(e), e.count) for e in ka
-                  if _device_self_us(e) > 0), key=lambda r: -r[1])
+    dev = device_rows(prof)
     busy_ms = sum(us for _k, us, _c in dev) / 1e3
     n_win = hi - lo
     win_paths = [r.path for r in rep.results[lo:hi]]
@@ -108,8 +198,9 @@ def main() -> int:
         "wall_ms": t_win * 1e3, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / (t_win * 1e3),
         "device_events_per_step": sum(c for _k, _us, c in dev) / n_win,
-        "top": [{"op": k[:80], "ms": us / 1e3, "count": c}
-                for k, us, c in dev[:10]]}}))
+        "top": top(dev)}}), flush=True)
+
+    profile_superstep()
     return 0
 
 

@@ -1,20 +1,36 @@
-"""Regenerate the port's full-length replay golden with the JAX package.
+"""Regenerate the port's full-length replay goldens with the JAX package.
 
 Replays ``manhattan_world(n, seed)`` through ``aprilsam_tpu.replay.Replay``
-on the CPU in float64, with the default ``SolverConfig`` and the wall-clock
-gate off (the deterministic reference trajectory), and writes one line per
-step: ``step path chi2``, where chi2 is the solver's per-step
+on the CPU in float64 with the wall-clock gate off (the deterministic
+reference trajectory).
+
+Per-step mode (the default) uses the default ``SolverConfig`` and writes
+one line per step: ``step path chi2``, where chi2 is the solver's per-step
 ``chi2_history()`` entry and path is fast, full or batch.
 
     JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py \
         --out aprilsam_tpu_torch/golden/manhattan3500_seed0.txt
 
-``chip_smoke.py`` holds the port's replay on the card against this file.
+With ``--superstep S`` it writes the superstep golden instead: the replay
+in deferred mode at ``superstep_size=S``, ``policy_lag=0`` and
+``log_chi2=True`` with the bench ladder of union buckets, one line per
+metric-ring entry (``entry chi2``: one per superstep and per batch epoch),
+and a header of ``# <key> <json>`` lines holding that config, its counters,
+and the final chi2 of three lagged configs: the bench's (``policy_lag=3``,
+``policy_poll=2``, ``log_chi2=False``), the bench's with the windowed sweep
+(``sweep_window_panels=8``, ``sweep_full_every=8``) and the CLI's
+``--superstep S`` (``policy_lag=2``, the default ladder).
+
+    JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --superstep 96 \
+        --out aprilsam_tpu_torch/golden/manhattan3500_seed0_super96.txt
+
+``chip_smoke.py`` holds the port's replays on the card against these files.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -30,14 +46,57 @@ from aprilsam_tpu.datasets import manhattan_world  # noqa: E402
 from aprilsam_tpu.replay import Replay  # noqa: E402
 from aprilsam_tpu.solver import SolverConfig  # noqa: E402
 
+BENCH_BUCKETS = (64, 128, 256, 384, 640, 1024)
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--poses", type=int, default=3500)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", required=True)
-    args = ap.parse_args(argv)
 
+def superstep_configs(S: int) -> dict:
+    """The superstep replays of the golden, by name: keyword arguments of
+    SolverConfig on top of ``wallclock_gate=False``."""
+    bench = dict(superstep_size=S, superstep_buckets=BENCH_BUCKETS,
+                 policy_lag=3, policy_poll=2, log_chi2=False)
+    return {
+        "ring": dict(bench, policy_lag=0, policy_poll=1, log_chi2=True),
+        "bench": bench,
+        "windowed": dict(bench, sweep_window_panels=8, sweep_full_every=8),
+        "cli": dict(superstep_size=S, policy_lag=2, log_chi2=False),
+    }
+
+
+def _superstep_run(g, kw: dict):
+    cfg = SolverConfig(wallclock_gate=False, **kw)
+    rep = Replay(g, cfg, deferred=True)
+    t0 = time.perf_counter()
+    rep.run()
+    secs = time.perf_counter() - t0
+    return rep.solver, secs
+
+
+def write_superstep(args) -> None:
+    g = manhattan_world(args.poses, seed=args.seed)
+    cfgs = superstep_configs(args.superstep)
+    solver, secs = _superstep_run(g, cfgs["ring"])
+    hist = solver.chi2_history()
+    head = {"config": {"wallclock_gate": False, **cfgs["ring"]},
+            "counters": dict(solver.counters)}
+    print(f"ring: {len(hist)} entries in {secs:.1f} s, counters "
+          f"{solver.counters}, final chi2 {solver.chi2()!r}")
+    for name in ("bench", "windowed", "cli"):
+        s, secs = _superstep_run(g, cfgs[name])
+        head[name] = {"config": {"wallclock_gate": False, **cfgs[name]},
+                      "final_chi2": s.chi2(), "counters": dict(s.counters)}
+        print(f"{name}: final chi2 {s.chi2()!r} in {secs:.1f} s, counters "
+              f"{s.counters}")
+    with open(args.out, "w") as f:
+        f.write(f"# manhattan_world({args.poses}, seed={args.seed}), JAX "
+                "package on the CPU, float64, Replay(deferred=True); "
+                "columns: entry chi2_history; header lines: # key json\n")
+        for key, val in head.items():
+            f.write(f"# {key} {json.dumps(val, sort_keys=True)}\n")
+        for i, c in enumerate(hist):
+            f.write(f"{i} {float(c)!r}\n")
+
+
+def write_per_step(args) -> None:
     g = manhattan_world(args.poses, seed=args.seed)
     rep = Replay(g, SolverConfig(wallclock_gate=False))
     t0 = time.perf_counter()
@@ -54,6 +113,21 @@ def main(argv=None) -> int:
     census = {p: sum(r.path == p for r in res) for p in ("fast", "full", "batch")}
     print(f"{len(res)} steps in {secs:.1f} s, census {census}, "
           f"final chi2 {float(hist[-1])!r}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--poses", type=int, default=3500)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--superstep", type=int, default=1,
+                    help="write the superstep golden at this superstep_size "
+                         "(1 = the per-step golden)")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    if args.superstep > 1:
+        write_superstep(args)
+    else:
+        write_per_step(args)
     return 0
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: no module of aprilsam_tpu_torch, and neither
 chip_smoke.py nor profile_torch_replay.py, imports JAX or the JAX package;
-its entry points run on the card unless asked for the CPU; settings of
-later slices raise."""
+its entry points run on the card unless asked for the CPU; the throughput
+settings run on the CPU; settings of later slices raise."""
 
 import json
 import os
@@ -15,6 +15,7 @@ import torch
 
 from aprilsam_tpu_torch import cli
 from aprilsam_tpu_torch.datasets import manhattan_world
+from aprilsam_tpu_torch.io import save_graph_file
 from aprilsam_tpu_torch.replay import Replay
 from aprilsam_tpu_torch.solver import (BatchSolver, IncrementalSolver,
                                        SolverConfig)
@@ -41,7 +42,8 @@ def _port_modules():
 
 def test_port_has_the_slice_modules():
     mods = set(_port_modules())
-    for m in ("geometry", "graph", "io.g2o", "datasets", "solver.config",
+    for m in ("geometry", "graph", "io.g2o", "io.stype", "datasets",
+              "solver.config",
               "utils.timeprofile", "native", "solver.symbolic", "factors",
               "kernels.linalg3", "solver.state", "solver.ingest",
               "solver.batch", "solver.host_batch", "kernels.tri_inv",
@@ -137,10 +139,7 @@ def test_cli_on_cpu_prints_json(tmp_path, capsys):
 
 
 UNPORTED = [
-    {"policy_lag": 2},
     {"bundle_size": 4},
-    {"superstep_size": 8},
-    {"sweep_window_panels": 4},
     {"coalesce_full_solves": True},
     {"batch_backend": "device"},
     {"batch_backend": "panel"},
@@ -157,16 +156,51 @@ def test_unported_settings_raise(kw):
         BatchSolver(cfg, device="cpu")
 
 
-def test_unported_replay_and_cli_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Replay(_tiny_graph(), deferred=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="io/stype.py"):
-        cli.main(["--device", "cpu", "--quiet"])
-    path = tmp_path / "one.g2o"
-    path.write_text("VERTEX2 0 0 0 0\n")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli.main(["--datapath", str(path), "--device", "cpu", "--superstep",
-                  "4"])
+THROUGHPUT = {
+    "policy_lag=2": {"policy_lag": 2},
+    "superstep_size=8": {"superstep_size": 8},
+    "sweep_window_panels=4": {"superstep_size": 8, "sweep_window_panels": 4,
+                              "sweep_full_every": 3},
+    "sweep_every_supersteps=2": {"superstep_size": 8,
+                                 "sweep_every_supersteps": 2},
+}
+
+
+@pytest.mark.parametrize("case", [*THROUGHPUT, "replay-deferred",
+                                  "cli-graphpath", "cli-superstep"])
+def test_throughput_settings_run_on_cpu(case, tmp_path, capsys):
+    """The settings, Replay option and CLI flags of the throughput modes,
+    which raised until the port had them, construct and run."""
+    g = manhattan_world(30, seed=0)
+    small = dict(node_capacity=64, panel_nodes=8, wallclock_gate=False)
+    if case in THROUGHPUT:
+        cfg = SolverConfig(**small, **THROUGHPUT[case])
+        assert cfg.unported_settings() == []
+        assert BatchSolver(cfg, device="cpu").solve(g).spd
+        rep = Replay(g, cfg, deferred=True, device="cpu")
+        rep.run()
+        assert np.isfinite(rep.solver.chi2())
+        if cfg.superstep_size > 1:
+            assert rep.solver.counters["superstep"] > 0
+        return
+    if case == "replay-deferred":
+        rep = Replay(g, SolverConfig(**small), deferred=True, device="cpu")
+        res = rep.run()
+        assert len(res) == 30 and np.isfinite(res[-1].chi2)
+        return
+    if case == "cli-graphpath":
+        path = tmp_path / "m30.graph"
+        save_graph_file(g, str(path))
+        args = ["--graphpath", str(path)]
+    else:
+        path = tmp_path / "one.g2o"
+        path.write_text("VERTEX2 0 0 0 0\nVERTEX2 1 1 0 0\n"
+                        "EDGE2 0 1 1 0 0 100 0 100 1000 0 0\n")
+        args = ["--datapath", str(path), "--superstep", "4"]
+    assert cli.main(args + ["--device", "cpu", "--quiet", "--json",
+                            "--node_capacity", "64"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(out["final_chi2"])
 
 
 def test_auto_backend_is_the_native_host_epoch():

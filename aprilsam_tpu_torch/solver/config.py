@@ -10,20 +10,14 @@ Defaults match the reference demo exactly: tikhonov 1e-4
 (april_graph_cholesky_param_init, aprilsam.c:45-64), delta_xy = 0.1,
 delta_theta = 0.1, nthreshold = 100 (examples/aprilsam_demo.c:250-252).
 
-The port runs the synchronous per-step path and the throughput modes of
-the same path: the deferred policy (policy_lag, policy_poll), supersteps
-(superstep_size, superstep_buckets, sweep_every_supersteps) and the
-windowed sweep (sweep_window_panels, sweep_full_every).  Bundled dispatch
-(bundle_size, coalesce_full_solves) and the device batch backends keep
-their fields here so configurations carry across unchanged, but
-``unported_settings`` names them and the solvers raise
-``NotImplementedError`` on any of them.
+Every setting of the JAX package's configuration runs in the port: the
+synchronous per-step path, the lagged policy, supersteps, the windowed
+sweep, bundled dispatch and the host, dense and panel batch epochs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
 
 import numpy as np
 import torch
@@ -52,7 +46,11 @@ class SolverConfig:
     # In lagged mode, read the policy stats once per this many due entries
     # (the device counters are cumulative, so the newest entry suffices).
     policy_poll: int = 1
-    # Bundled dispatch (not ported yet).
+    # Bundled dispatch: consecutive steps of one signature dispatched
+    # together (1 = off); full-path bundles cap at bundle_size_full.  Mixed
+    # bundles let fast and full steps share one bundle; with
+    # coalesce_full_solves a bundle's full steps share one whole-graph
+    # sweep at its end.
     bundle_size: int = 1
     bundle_size_full: int = 4
     mixed_bundles: bool = True
@@ -70,7 +68,15 @@ class SolverConfig:
     # Affected-set buckets of the union front (None = the ladder below);
     # a union beyond the largest takes the batch fallback.
     superstep_buckets: tuple = None
+    # Pattern columns a step's rows may hold to ride a mixed bundle (None =
+    # row_block_capacity: every plan fits).
     ridx_pack_capacity: int = None
+
+    @property
+    def effective_ridx_pack(self) -> int:
+        if self.ridx_pack_capacity is None:
+            return self.row_block_capacity
+        return self.ridx_pack_capacity
 
     @property
     def effective_superstep_buckets(self) -> tuple:
@@ -88,7 +94,9 @@ class SolverConfig:
     dtype: np.dtype = np.float64   # device dtype of the solver state
     gn_iters: int = None           # GN iterations per batch epoch (None => 1)
     # Batch epoch backend: "host" and "auto" = native C float64 (exact
-    # reference semantics); "device"/"panel" are not ported yet.
+    # reference semantics); "device" = the dense device epoch; "panel" =
+    # the panel device epoch (dense where no panel plan fits, host where
+    # the dense one would not fit either).
     batch_backend: str = "auto"
     check_spd: bool = True         # batch fallback on a non-SPD frontal
                                    # (fixes the reference's ignored is_spd
@@ -125,24 +133,3 @@ class SolverConfig:
         if self.gn_iters is not None:
             return self.gn_iters
         return 1
-
-    def unported_settings(self) -> List[str]:
-        """Settings of the JAX package's bundled dispatch and device batch
-        epochs, which later slices of the port bring over."""
-        out = []
-        if self.bundle_size > 1:
-            out.append("bundle_size>1 (bundled dispatch)")
-        if self.coalesce_full_solves:
-            out.append("coalesce_full_solves (bundled dispatch)")
-        if self.batch_backend in ("device", "panel"):
-            out.append(f"batch_backend={self.batch_backend!r} "
-                       "(device batch epochs)")
-        return out
-
-    def check_ported(self) -> None:
-        bad = self.unported_settings()
-        if bad:
-            raise NotImplementedError(
-                "not ported to aprilsam_tpu_torch yet: " + ", ".join(bad)
-                + "; bundled dispatch and the device batch epochs come "
-                "in later slices of the port (ROADMAP.md queue 1)")

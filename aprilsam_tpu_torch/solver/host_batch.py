@@ -84,6 +84,17 @@ def _adjacency_csr(nnodes: int, ftypes, fnodes) -> Tuple[np.ndarray, np.ndarray]
     return ptr, dst.astype(np.int32)
 
 
+def native_symbolic(cfg: SolverConfig, nnodes: int, ftypes, fnodes):
+    """The epoch's symbolic phase in native C: the fill-reducing ordering,
+    then the block patterns and etree.  Returns (order, patterns [n, BCAP],
+    nnz [n], parents [n])."""
+    adj_ptr, adj_idx = _adjacency_csr(nnodes, ftypes, fnodes)
+    order = native.order_md(nnodes, adj_ptr, adj_idx, style=cfg.ordering)
+    patterns, nnz, parents, _maxnnz = native.symbolic(
+        nnodes, adj_ptr, adj_idx, order, cfg.row_block_capacity)
+    return order, patterns, nnz, parents
+
+
 def host_batch_epoch(
     ds: DeviceState,
     cfg: SolverConfig,
@@ -97,10 +108,8 @@ def host_batch_epoch(
     NCAP = cfg.node_capacity
     BCAP = cfg.row_block_capacity
 
-    adj_ptr, adj_idx = _adjacency_csr(nnodes, ftypes, fnodes)
-    order = native.order_md(nnodes, adj_ptr, adj_idx, style=cfg.ordering)
-    patterns, nnz, parents, _maxnnz = native.symbolic(
-        nnodes, adj_ptr, adj_idx, order, BCAP)
+    order, patterns, nnz, parents = native_symbolic(cfg, nnodes, ftypes,
+                                                    fnodes)
 
     # current states come from the device (one read; batches are rare)
     states = ds.state[:nnodes].cpu().numpy().astype(np.float64)

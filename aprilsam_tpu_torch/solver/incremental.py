@@ -1,8 +1,8 @@
 """Hybrid incremental/batch solver — the AprilSAM algorithm, per step or in
 supersteps, with a synchronous or a lagged batch-fallback policy.
 
-Counterpart of ``aprilsam_tpu/solver/incremental.py`` without its bundled
-dispatch (reference: april_graph_cholesky_inc, aprilsam.c:377-576).
+Counterpart of ``aprilsam_tpu/solver/incremental.py`` (reference:
+april_graph_cholesky_inc, aprilsam.c:377-576).
 The algebra is the JAX package's.  Two structural facts make the affected
 submatrix self-contained: row p of R has nonzeros only at etree ancestors of
 p, and the affected set F (paths from the touched nodes to the root,
@@ -25,6 +25,10 @@ Throughput modes (as in the JAX package):
   * superstep_size > 1: a buffer of steps is planned as ONE union front and
     dispatched as one joint frontal update plus one sweep (whole-graph, or
     windowed to the panels the union front touches);
+  * bundle_size > 1: consecutive steps queue and dispatch together, one
+    bundle per signature (mixed bundles: fast and full steps share one),
+    with the stats of all slots in one copy; with coalesce_full_solves a
+    bundle's full steps share one whole-graph sweep at its end;
   * the policy's wall-clock gate then reads dispatch-to-dispatch intervals.
 
 How the port differs from the JAX package, with the algebra unchanged:
@@ -35,7 +39,10 @@ How the port differs from the JAX package, with the algebra unchanged:
     instead of padded to static buckets, and the JAX package's one-hot
     einsums are index ops; the frontal buckets survive only as the
     affected-set limit that sends a step to the batch fallback;
-  * the solver state is updated in place.
+  * the solver state is updated in place;
+  * a bundle is a Python loop over its live slots inside one dispatch call
+    (no host read between slots), where the JAX package scans over a
+    padded, packed slot array.
 """
 
 from __future__ import annotations
@@ -57,11 +64,11 @@ from ..kernels.linalg3 import chol3, solve_upper3
 from ..kernels.sweep import panel_backsub, panel_backsub_windowed
 from ..utils import resolve_device, setup_precision
 from ..utils.timeprofile import TimeProfile
-from .batch import BatchInfo
+from .batch import BatchInfo, PanelFallbackError, run_batch_epoch
 from .config import SolverConfig
 from .ingest import ingest_graph
 from .state import (DeviceState, init_device_state, state_chi2,
-                    state_from_numpy, state_to_numpy)
+                    state_from_numpy, state_to_numpy, upload)
 from . import symbolic as sym_mod
 from .symbolic import SymbolicState
 
@@ -73,6 +80,12 @@ KSEED = 4   # max odometry seedings per step
 # (an exact, un-pruned solve), as in the JAX package.
 MIXED_FR = 32
 FRCAP = 128  # fringe capacity handed to the native planner
+# Mixed bundles (as in the JAX package): the affected-set buckets whose
+# full steps share a bundle with fast steps (a fast step must fit the
+# first), and the word budget of one dispatch of the JAX package's packed
+# slot layout, beyond which a bundle is split (see _mixed_chunks).
+MIXED_BUCKETS = (16, 64, 256, 1024)
+MIXED_FLAT_BUCKETS = (131072, 262144)
 
 
 @dataclass
@@ -113,6 +126,8 @@ class StepTail:
 class StepPlan:
     m: int                    # affected rows (incl. new nodes)
     naffected: int            # affected rows excluding new nodes
+    maxaff: int               # the affected-set bucket of m
+    max_rnnz: int             # widest new pattern row (mixed bundles)
     fringe_overflow: bool
     tail: StepTail
     F_pos: np.ndarray         # [m] affected positions, ascending
@@ -356,7 +371,9 @@ def plan_step(
 
     F64 = F.astype(np.int64)
     return StepPlan(
-        m=m, naffected=naffected, fringe_overflow=fringe_overflow,
+        m=m, naffected=naffected, maxaff=_bucket(m, buckets),
+        max_rnnz=int(new_nnz.max()) if m else 0,
+        fringe_overflow=fringe_overflow,
         tail=tail,
         F_pos=F64,
         F_node=sym.order[F].astype(np.int64),
@@ -373,32 +390,6 @@ def plan_step(
 # device step
 # ======================================================================
 
-def _upload(ds: DeviceState, ints: Dict[str, np.ndarray],
-            floats: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """The host arrays of one dispatch on the device, in one copy per
-    dtype: index arrays as int64, float arrays in the state's dtype.  On
-    the card the copy leaves pinned host memory asynchronously (PyTorch's
-    caching host allocator keeps the buffer until the copy is done), so
-    the host does not wait for earlier device work, as a pageable upload
-    would.  Returns views into the copies, shaped as the arrays."""
-    out = {}
-    cuda = ds.device.type == "cuda"
-    for arrays, dtype in ((ints, torch.int64), (floats, ds.state.dtype)):
-        flat = [np.asarray(a).reshape(-1) for a in arrays.values()]
-        host = torch.empty(sum(len(f) for f in flat), dtype=dtype,
-                           pin_memory=cuda)
-        h = host.numpy()
-        offs, o = [], 0
-        for f in flat:
-            h[o:o + len(f)] = f
-            offs.append(o)
-            o += len(f)
-        dev = host.to(ds.device, non_blocking=True) if cuda else host
-        for (name, a), o, f in zip(arrays.items(), offs, flat):
-            out[name] = dev[o:o + len(f)].view(np.shape(a))
-    return out
-
-
 def tail_tensors(ds: DeviceState, tail: StepTail,
                  **ints: np.ndarray) -> Dict[str, torch.Tensor]:
     """Upload a step tail (and any further index arrays) for
@@ -410,7 +401,7 @@ def tail_tensors(ds: DeviceState, tail: StepTail,
     floats = dict(node_states=tail.node_states, seed_z=tail.seed_z,
                   nf_z=tail.nf_z, nf_W=tail.nf_W, np_z=tail.np_z,
                   np_W=tail.np_W)
-    return _upload(ds, ints, floats)
+    return upload(ds, ints, floats)
 
 
 def plan_tensors(ds: DeviceState, plan: StepPlan,
@@ -789,6 +780,52 @@ def inc_superstep_win(ds: DeviceState, plan: StepPlan,
     return _superstep_stats(ds, stats, plan.m > 0, log_chi2)
 
 
+# ----------------------------------------------------------------------
+# bundles: consecutive steps in one dispatch
+# ----------------------------------------------------------------------
+
+def inc_bundle(ds: DeviceState, plans: Sequence[StepPlan],
+               fast: Sequence[bool], PANEL: int, NPANB: int,
+               delta_xy: float, delta_theta: float, log_chi2: bool,
+               coalesce: bool) -> torch.Tensor:
+    """A bundle of consecutive steps, slot by slot with no host read in
+    between: the JAX package's inc_bundle_fast (every slot fast),
+    inc_bundle_full (every slot full) and inc_bundle_mixed, whose padding
+    slots are no-ops and are not run here.  fast[i] is slot i's path.
+
+    With `coalesce`, a full slot runs its frontal update and the exact
+    solve of its affected set (the fast-path algebra at its own size: F is
+    ancestor-closed), and the whole-graph sweep that refreshes the other
+    nodes runs once at the end when any slot was full; the last slot's row
+    then carries the post-sweep start_over, so the policy sees the sweep's
+    relinearizations.  Returns the stats [k, 3]."""
+    Ps = [plan_tensors(ds, plan) for plan in plans]
+    rows = []
+    for plan, P, f in zip(plans, Ps, fast):
+        if f or coalesce:
+            rows.append(_fast_body(ds, plan, P, delta_xy, delta_theta,
+                                   log_chi2))
+        else:
+            rows.append(_full_body(ds, plan, P, PANEL, NPANB, delta_xy,
+                                   delta_theta, log_chi2))
+    stats = torch.stack(rows)
+    if coalesce and not all(fast):
+        _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
+        stats[-1, 1] = ds.start_over.to(stats.dtype)
+    return stats
+
+
+def packed_words(M: int, K: int, RCAP: int, half: bool, float_words: int,
+                 knode: int = KNODE, kseed: int = KSEED) -> int:
+    """Length in int32 words of the JAX package's packed plan of one mixed
+    slot at affected-set bucket M (incremental.py:packed_layout, with the
+    MIXED_FR fringe): control ints, the float payload as raw words, and
+    M pattern rows of RCAP columns (int16 pairs when `half`)."""
+    ints = 3 * M + 6 * K + 2 * MIXED_FR + knode + 3 * kseed + 8
+    floats = (24 * K + 3 * knode + 3 * kseed) * float_words
+    return ints + floats + M * (RCAP // 2 if half else RCAP)
+
+
 # ======================================================================
 # solver
 # ======================================================================
@@ -798,12 +835,14 @@ class _Pending:
     """A dispatch's policy stats on their way to the host."""
 
     step: int
-    stats: torch.Tensor          # [3] on the host (pinned, from the card)
+    stats: torch.Tensor          # [3], or a bundle's [k, 3], on the host
+                                 # (pinned, from the card)
     done: Optional["torch.cuda.Event"]  # the copy's event; None = on host
     dispatched_after_batch: int  # batch-epoch serial at dispatch time
     step_ms: float = 0.0         # wall-clock estimate for the deferred gate
                                  # (dispatch-to-dispatch interval / steps;
                                  # 0.0 = unknown, gate inactive)
+    row: int = -1                # the step's row in a bundle's stats
 
     def is_ready(self) -> bool:
         return self.done is None or self.done.query()
@@ -811,7 +850,8 @@ class _Pending:
     def read(self) -> np.ndarray:
         if self.done is not None:
             self.done.synchronize()
-        return self.stats.numpy()
+        stats = self.stats.numpy()
+        return stats[self.row] if self.row >= 0 else stats
 
 
 def _stats_to_host(stats: torch.Tensor):
@@ -837,7 +877,6 @@ class IncrementalSolver:
 
     def __init__(self, cfg: Optional[SolverConfig] = None, device="cuda"):
         self.cfg = cfg or SolverConfig()
-        self.cfg.check_ported()
         self.device = resolve_device(device)
         setup_precision()
         self.ds = init_device_state(self.cfg, self.device)
@@ -850,15 +889,23 @@ class IncrementalSolver:
         self.last_path = "none"
         self.last_naffected = 0
         self.steps_done = 0
-        # dispatches by path, batch epochs, and in superstep mode the union
-        # front's size, the supersteps without a sweep, the windowed sweeps
-        # and the sweeps flush() ran
-        self.counters = {"fast": 0, "full": 0, "batch": 0, "superstep": 0,
-                         "sup_overflow": 0, "sup_m_max": 0, "sup_m_sum": 0,
-                         "sup_nosweep": 0, "sweep_win": 0, "sweep_flush": 0}
+        # steps by path, batch epochs (and by the backend that ran them);
+        # in bundles, the full steps whose sweep was coalesced and the
+        # coalesced sweeps; in superstep mode the union front's size, the
+        # supersteps without a sweep, the windowed sweeps and the sweeps
+        # flush() ran
+        self.counters = {"fast": 0, "full": 0, "batch": 0, "epoch_panel": 0,
+                         "epoch_dense": 0, "epoch_host": 0,
+                         "full_coalesced": 0, "sweep_coalesced": 0,
+                         "superstep": 0, "sup_overflow": 0, "sup_m_max": 0,
+                         "sup_m_sum": 0, "sup_nosweep": 0, "sweep_win": 0,
+                         "sweep_flush": 0}
         self._batch_serial = 0
         self._pending: deque = deque()
         self._due_since_poll = 0
+        # planned, not yet dispatched bundle slots: (plan, fast)
+        self._queue: list = []
+        self._queue_sig = None
         # buffered raw steps of a superstep: (f0, f1, n_old, n1, seeds, g)
         self._sbuf: list = []
         self._sbuf_counts = [0, 0, 0, 0]     # nodes, seeds, xyt, pos
@@ -955,8 +1002,8 @@ class IncrementalSolver:
         while need_f > fcap or need_p > max(256, fcap // 8):
             fcap *= 2
 
-        # buffered steps land in the old-capacity state first
-        self._dispatch_superstep()
+        # buffered and queued steps land in the old-capacity state first
+        self._dispatch_queue()
         old = state_to_numpy(self.ds)
         old_ncap = cfg.node_capacity
         self.cfg = dataclasses.replace(cfg, node_capacity=ncap,
@@ -988,18 +1035,15 @@ class IncrementalSolver:
         """A batch epoch over the first nnodes/nfactors of g (default all;
         a superstep's union-overflow fallback bounds it to the buffered
         span, because the device tables may not yet hold the caller's
-        pending step).  Buffered steps logically precede the epoch."""
-        from .host_batch import host_batch_epoch
-
-        self._dispatch_superstep()
+        pending step).  Buffered and queued steps logically precede the
+        epoch."""
+        self._dispatch_queue()
         nn = g.nnodes if nnodes is None else nnodes
         nf = g.nfactors if nfactors is None else nfactors
         t0 = time.perf_counter()
         while True:
             try:
-                self.ds, self.sym, info = host_batch_epoch(
-                    self.ds, self.cfg, nn, g.ftype[:nf], g.fnodes[:nf],
-                    g.fz[:nf], g.fW[:nf], log_mode=log_mode)
+                info = self._epoch(g, nn, nf, log_mode)
                 break
             except OverflowError:
                 self._grow_row_capacity()
@@ -1023,6 +1067,34 @@ class IncrementalSolver:
         self.counters["batch"] += 1
         return info
 
+    def _use_host_batch(self) -> bool:
+        return self.cfg.batch_backend not in ("device", "panel")
+
+    def _epoch(self, g: FactorGraph, nn: int, nf: int,
+               log_mode: int) -> BatchInfo:
+        """One epoch on the configured backend, counted by the backend that
+        ran it.  The device epochs are lazy in lagged mode: their BatchInfo
+        then holds 0-d device tensors, and the epoch makes no synchronizing
+        call."""
+        from .host_batch import host_batch_epoch
+
+        head = (self.cfg, nn, g.ftype[:nf], g.fnodes[:nf])
+        if not self._use_host_batch():
+            try:
+                self.ds, self.sym, info, backend = run_batch_epoch(
+                    self.ds, *head, log_mode=log_mode,
+                    lazy=self.cfg.policy_lag > 0)
+                self.counters["epoch_" + backend] += 1
+                return info
+            except PanelFallbackError:
+                # no panel plan at either grade where the dense epoch would
+                # not fit: the float64 host epoch (the JAX package's rule)
+                pass
+        self.ds, self.sym, info = host_batch_epoch(
+            self.ds, *head, g.fz[:nf], g.fW[:nf], log_mode=log_mode)
+        self.counters["epoch_host"] += 1
+        return info
+
     def solve(self, g: FactorGraph) -> BatchInfo:
         """Full batch solve (april_graph_cholesky)."""
         if g.nnodes == 0 or g.nfactors == 0:
@@ -1031,7 +1103,7 @@ class IncrementalSolver:
         self._ingest(g)
         info = self._run_batch(g)
         self.steps_done += 1
-        return info
+        return BatchInfo(chi2=float(info.chi2), spd=bool(info.spd), n=info.n)
 
     # ---------------------------------------------------------------
 
@@ -1118,8 +1190,9 @@ class IncrementalSolver:
         if g.nnodes == 0 or g.nfactors == 0:
             return BatchInfo(chi2=0.0, spd=True, n=0)
         if self.sym is None or self.factor_num == g.nfactors:
-            # guards (aprilsam.c:380-385); buffered steps land first
-            self._dispatch_superstep()
+            # guards (aprilsam.c:380-385); buffered and queued steps land
+            # first
+            self._dispatch_queue()
             return BatchInfo(chi2=float(state_chi2(self.ds)), spd=True, n=0)
         self._maybe_grow_capacity(g)
 
@@ -1141,8 +1214,10 @@ class IncrementalSolver:
             self.tp.stamp("plan")
 
         if plan is None:
-            # plan overflow -> batch fallback; the step's nodes, factors
-            # and seeds are ingested first (aprilsam_demo.c:180-191)
+            # plan overflow -> batch fallback; queued steps land first,
+            # then the step's nodes, factors and seeds are ingested
+            # (aprilsam_demo.c:180-191)
+            self._dispatch_queue()
             if not self._ingest_tail_fast(g, seeds):
                 self._ingest(g)
                 self._apply_seeds(seeds)
@@ -1154,6 +1229,10 @@ class IncrementalSolver:
         self.last_naffected = plan.naffected
         fast = (plan.naffected <= self.cfg.small_path_max
                 and not plan.fringe_overflow)
+        self.last_path = "fast" if fast else "full"
+        self.counters[self.last_path] += 1
+        if self.cfg.bundle_size > 1:
+            return self._update_bundled(g, plan, fast)
         stats = self._dispatch_one(plan, fast, self._npanb(g.nnodes))
         self.steps_done += 1
         if self.cfg.policy_lag > 0:
@@ -1174,8 +1253,6 @@ class IncrementalSolver:
     def _dispatch_one(self, plan: StepPlan, fast: bool,
                       npanb: int) -> torch.Tensor:
         cfg = self.cfg
-        self.last_path = "fast" if fast else "full"
-        self.counters[self.last_path] += 1
         P = plan_tensors(self.ds, plan)
         if fast:
             return _fast_body(self.ds, plan, P, float(cfg.delta_xy),
@@ -1193,6 +1270,116 @@ class IncrementalSolver:
         while b * PANEL < nnodes and b < NPAN:
             b *= 2
         return min(b, NPAN)
+
+    # ---------------------------------------------------------- bundles
+
+    def _update_bundled(self, g: FactorGraph, plan: StepPlan,
+                        fast: bool) -> None:
+        """Queue a planned step; the queue dispatches as one bundle when
+        the step's signature differs from the queue's (path, bucket and
+        active panels; mixed bundles: the active panels only) and when it
+        reaches its cap (bundle_size, or bundle_size_full for a full-path
+        signature)."""
+        cfg = self.cfg
+        B = cfg.bundle_size
+        npanb = self._npanb(g.nnodes)
+        if self._fits_mixed(plan, fast):
+            sig, cap = ("mixed", npanb), B
+        elif fast:
+            sig, cap = ("fast", plan.maxaff), B
+        else:
+            sig = ("full", plan.maxaff, npanb)
+            cap = max(1, min(B, cfg.bundle_size_full))
+        if self._queue and self._queue_sig != sig:
+            self._dispatch_queue()
+        self._queue_sig = sig
+        self._queue.append((plan, fast))
+        self.steps_done += 1
+        if len(self._queue) >= cap:
+            self._dispatch_queue()
+            if self.tp is not None:
+                self.tp.stamp("dispatch_bundle")
+        self._drain_pending(g)
+        return None
+
+    def _fits_mixed(self, plan: StepPlan, fast: bool) -> bool:
+        """Whether the plan fits a mixed bundle (else it takes a bundle of
+        its own signature): mixed bundles on, its pattern rows within
+        ridx_pack_capacity, and its affected-set bucket a mixed one (the
+        first, for a fast step)."""
+        cfg = self.cfg
+        rpack = cfg.effective_ridx_pack
+        if (not cfg.mixed_bundles or plan.max_rnnz > rpack
+                or rpack > cfg.row_block_capacity):
+            return False
+        if fast:
+            return plan.maxaff <= MIXED_BUCKETS[0]
+        return plan.maxaff in MIXED_BUCKETS
+
+    def _mixed_chunks(self, entries: list) -> List[list]:
+        """The chunks a mixed bundle dispatches in: the JAX package splits
+        one whose packed slots, plus one dead slot, would exceed
+        MIXED_FLAT_BUCKETS[-1] words (incremental.py:2271-2282), and with
+        coalesce_full_solves each chunk sweeps on its own.  Only the length
+        arithmetic of that layout is kept."""
+        cfg = self.cfg
+        RCAP = cfg.effective_ridx_pack
+        float_words = 2 if self.ds.state.dtype == torch.float64 else 1
+        half = cfg.node_capacity <= 32766 and RCAP % 2 == 0
+
+        def length(M):
+            return 1 + packed_words(M, cfg.new_factor_capacity, RCAP, half,
+                                    float_words)
+
+        dead = length(MIXED_BUCKETS[0])
+        chunks, cur, cur_words = [], [], 0
+        for entry in entries:
+            w = length(entry[0].maxaff)
+            if cur and cur_words + w + dead > MIXED_FLAT_BUCKETS[-1]:
+                chunks.append(cur)
+                cur, cur_words = [], 0
+            cur.append(entry)
+            cur_words += w
+        chunks.append(cur)
+        return chunks
+
+    def _dispatch_queue(self) -> None:
+        """Make the device state reflect every logical step: dispatch the
+        superstep buffer, then the bundle queue (one bundle per chunk; a
+        one-slot bundle of a fast or full signature as a single step), and
+        queue each slot's stats row for the policy."""
+        self._dispatch_superstep()
+        if not self._queue:
+            return
+        cfg = self.cfg
+        (entries, sig), self._queue = (self._queue, self._queue_sig), []
+        self._queue_sig = None
+        k = len(entries)
+        npanb = sig[-1] if sig[0] != "fast" else 0
+        if k == 1 and sig[0] != "mixed":
+            plan, fast = entries[0]
+            self._defer(self._dispatch_one(plan, fast, npanb), 1)
+            return
+        chunks = (self._mixed_chunks(entries) if sig[0] == "mixed"
+                  else [entries])
+        dxy, dth = float(cfg.delta_xy), float(cfg.delta_theta)
+        out = [inc_bundle(self.ds, [p for p, _f in ch], [f for _p, f in ch],
+                          cfg.panel_nodes, npanb, dxy, dth, cfg.log_chi2,
+                          cfg.coalesce_full_solves) for ch in chunks]
+        if cfg.coalesce_full_solves:
+            for ch in chunks:
+                full = sum(not f for _p, f in ch)
+                self.counters["full_coalesced"] += full
+                self.counters["sweep_coalesced"] += full > 0
+        step_ms = self._mark_dispatch(k)
+        base = self.steps_done - k
+        for ch, stats in zip(chunks, out):
+            host, done = _stats_to_host(stats)
+            for i in range(len(ch)):
+                self._pending.append(_Pending(
+                    base + i, host, done, self._batch_serial,
+                    step_ms=step_ms, row=i))
+            base += len(ch)
 
     # ------------------------------------------------------- supersteps
 
@@ -1350,7 +1537,7 @@ class IncrementalSolver:
         """End of a replay: dispatch the buffered steps, clear any sweep
         staleness with one whole-graph sweep, and apply the policy to
         every pending entry."""
-        self._dispatch_superstep()
+        self._dispatch_queue()
         if self._sweep_stale:
             self.counters["sweep_flush"] += 1
             sweep_only(self.ds, self.cfg.panel_nodes,
@@ -1362,12 +1549,12 @@ class IncrementalSolver:
     # ---------------------------------------------------------------
 
     def chi2(self) -> float:
-        self._dispatch_superstep()
+        self._dispatch_queue()
         return float(state_chi2(self.ds))
 
     def chi2_history(self) -> np.ndarray:
         """Per-optimize chi2 values from the metric ring."""
-        self._dispatch_superstep()
+        self._dispatch_queue()
         n = self.ds.log_ptr
         LOG = self.ds.chi2_log.shape[0]
         if n > LOG:
@@ -1378,7 +1565,7 @@ class IncrementalSolver:
         return self.ds.chi2_log[:n].cpu().numpy()
 
     def sync_states(self, g: FactorGraph) -> None:
-        self._dispatch_superstep()
+        self._dispatch_queue()
         n = g.nnodes
         g.state[:n] = self.ds.state[:n].cpu().numpy().astype(np.float64)
         g.l_point[:n] = self.ds.l_point[:n].cpu().numpy().astype(np.float64)

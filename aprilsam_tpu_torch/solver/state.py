@@ -132,6 +132,34 @@ def state_chi2(ds: DeviceState) -> torch.Tensor:
                       ds.pos_W[:npo])
 
 
+def upload(ds: DeviceState, ints: Dict[str, np.ndarray],
+           floats: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The host arrays of one dispatch on the device, in one copy per
+    dtype: index arrays as int64, float arrays in the state's dtype.  On
+    the card the copy leaves pinned host memory asynchronously (PyTorch's
+    caching host allocator keeps the buffer until the copy is done), so
+    the host does not wait for earlier device work, as a pageable upload
+    would.  Returns views into the copies, shaped as the arrays."""
+    out = {}
+    cuda = ds.device.type == "cuda"
+    for arrays, dtype in ((ints, torch.int64), (floats, ds.state.dtype)):
+        if not arrays:
+            continue
+        flat = [np.asarray(a).reshape(-1) for a in arrays.values()]
+        host = torch.empty(sum(len(f) for f in flat), dtype=dtype,
+                           pin_memory=cuda)
+        h = host.numpy()
+        offs, o = [], 0
+        for f in flat:
+            h[o:o + len(f)] = f
+            offs.append(o)
+            o += len(f)
+        dev = host.to(ds.device, non_blocking=True) if cuda else host
+        for (name, a), o, f in zip(arrays.items(), offs, flat):
+            out[name] = dev[o:o + len(f)].view(np.shape(a))
+    return out
+
+
 # ------------------------------------------------------------ carry-across
 
 def state_to_numpy(ds: DeviceState) -> Dict[str, np.ndarray]:

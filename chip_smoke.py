@@ -40,7 +40,26 @@ and prints no result line):
      then cli.main --graphpath --superstep 96 (the CLI's config:
      policy_lag=2, the default ladder), final chi2 within 0.05 of the JAX
      package's;
-  8. one JSON line listing every ported kernel, with K1's launches on each
+  8. the device batch epochs: BatchSolver on manhattan_world(3500, seed=0),
+     float64, with batch_backend="device" (dense) and "panel", each held
+     against the host epoch on the same graph (same ordering, chi2, R, y
+     and states within EPOCH_TOL) and timed beside it (median of 3 after a
+     warm-up, host clock ending in torch.cuda.synchronize()), the host's
+     time to plan and enqueue a lazy epoch, and its symbolic phase and
+     panel plan alone; the panel epoch's back-substitution launches K1
+     once at [32,384,384];
+  9. the superstep replays of phase 6 with batch_backend="panel", against
+     the JAX package's panel golden: at policy_lag=0 every ring entry
+     within relative 1e-6 and the counters equal, the bench config's final
+     chi2 within 0.05; both with the golden's epochs by backend, no
+     synchronizing call inside a superstep dispatch, and K1 launched once
+     per swept superstep, flush() sweep and panel epoch;
+ 10. two per-step replays in bundles (bundle_size=8, policy_lag=8, mixed
+     bundles; then with coalesce_full_solves), final chi2 within 0.05 of
+     the JAX package's bundled golden, no synchronizing call inside a
+     bundle dispatch, and K1 launched once per full step whose sweep was
+     not coalesced plus once per coalesced sweep;
+ 11. one JSON line listing every ported kernel, with K1's launches on each
      path and by shape, and their launch-weighted kernel and library
      times; the card's line; and the result line
      {"ok": true, "device": {...}}.
@@ -60,6 +79,7 @@ import tempfile
 import time
 import warnings
 from collections import Counter
+from statistics import median
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -70,7 +90,17 @@ GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
                       "manhattan3500_seed0.txt")
 SUPER_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
                             "manhattan3500_seed0_super96.txt")
+PANEL_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
+                            "manhattan3500_seed0_super96_panel.txt")
+BUNDLED_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
+                              "manhattan3500_seed0_bundled8.txt")
 CHI2_BAND = 0.05   # the JAX package's own band for lagged superstep runs
+# A device epoch against the host epoch on manhattan_world(3500) from its
+# initial states (chi2 ~1e5): the three factorizations agree to float64
+# rounding amplified by the system's conditioning, measured on the CPU at
+# 4.6e-9 relative in chi2, 1.9e-8 in R, 2.9e-8 in y and 1.3e-7 in the
+# states (the panel epoch; the dense one is closer)
+EPOCH_TOL = {"chi2_rel": 1e-7, "R_blocks": 1e-6, "y": 1e-6, "state": 1e-6}
 
 # Published peaks (NVIDIA data sheets, dense), keyed by the exact name
 # torch.cuda.get_device_name reports: memory bytes/s, and the float64 (FP64
@@ -360,18 +390,22 @@ def run_main_path(K, card: str) -> tuple:
     return launches, by_shape
 
 
-def read_super_golden():
-    """The superstep golden: its header ({key: json}) and ring entries."""
-    head, ring = {}, []
-    with open(SUPER_GOLDEN) as f:
+def read_super_golden(path: str = SUPER_GOLDEN):
+    """A superstep or bundled golden: its header ({key: json}), its ring
+    entries, and the pose count of its graph."""
+    head, ring, poses = {}, [], None
+    with open(path) as f:
         for line in f:
             if line.startswith("# "):
+                m = re.match(r"# manhattan_world\((\d+), seed=0\)", line)
+                if m:
+                    poses = int(m.group(1))
                 key, _, val = line[2:].partition(" ")
                 if val.startswith("{"):
                     head[key] = json.loads(val)
                 continue
             ring.append(float(line.split()[1]))
-    return head, np.asarray(ring)
+    return head, np.asarray(ring), poses
 
 
 def golden_config(entry: dict):
@@ -385,17 +419,19 @@ def golden_config(entry: dict):
 
 class SyncCounter:
     """Records every synchronizing CUDA call (torch.cuda.set_sync_debug_mode
-    "warn") made inside the solver's superstep dispatches, by call site;
-    batch epochs (a union-overflow fallback, or one the policy fires) and
-    the policy's reads of the stats are not counted."""
+    "warn") made inside the solver's superstep dispatches (or, with
+    bundles=True, its bundle dispatches), by call site; batch epochs (a
+    union-overflow fallback, or one the policy fires) and the policy's
+    reads of the stats are not counted."""
 
-    def __init__(self, solver):
+    def __init__(self, solver, bundles: bool = False):
         self.dispatches = 0
         self.sites = Counter()
-        dispatch, batch = solver._dispatch_superstep, solver._run_batch
+        name = "_dispatch_queue" if bundles else "_dispatch_superstep"
+        dispatch, batch = getattr(solver, name), solver._run_batch
 
         def counted_dispatch():
-            if not solver._sbuf:
+            if not (solver._queue if bundles else solver._sbuf):
                 return dispatch()
             self.dispatches += 1
             mode = torch.cuda.get_sync_debug_mode()
@@ -419,7 +455,7 @@ class SyncCounter:
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
 
-        solver._dispatch_superstep = counted_dispatch
+        setattr(solver, name, counted_dispatch)
         solver._run_batch = uncounted_batch
 
     def summary(self) -> dict:
@@ -429,12 +465,18 @@ class SyncCounter:
                 "sites": dict(self.sites)}
 
 
+def epochs_of(counters: dict) -> dict:
+    return {k: counters[f"epoch_{k}"] for k in ("panel", "dense", "host")}
+
+
 def run_superstep(K, card: str, name: str, entry: dict,
                   ring=None) -> tuple:
-    """Phase 6, one config: the replay of manhattan_world(3500, seed=0) in
-    deferred mode on the card.  With `ring`, every metric-ring entry is
-    held to relative 1e-6 and the counters to the golden's; otherwise the
-    final chi2 to CHI2_BAND.  Returns the tri_inv launches by shape."""
+    """Phases 6 and 9, one config: the replay of manhattan_world(3500,
+    seed=0) in deferred mode on the card.  With `ring`, every metric-ring
+    entry is held to relative 1e-6 and the counters to the golden's;
+    otherwise the final chi2 to CHI2_BAND.  Where the golden records the
+    epochs by backend, they must be equal.  Returns the tri_inv launches
+    by shape."""
     from aprilsam_tpu_torch.datasets import manhattan_world
     from aprilsam_tpu_torch.replay import Replay
 
@@ -451,13 +493,15 @@ def run_superstep(K, card: str, name: str, entry: dict,
     launches, by_shape = K.launches, dict(K.launches_by_shape)
     final = solver.chi2()
     c = solver.counters
-    swept = c["superstep"] - c["sup_nosweep"] + c["sweep_flush"]
+    swept = (c["superstep"] - c["sup_nosweep"] + c["sweep_flush"]
+             + c["epoch_panel"])
     summary = {
         "phase": f"superstep-{name}", "card": card,
         "config": entry["config"], "steps": loaded.nnodes,
         "seconds": secs, "poses_per_s": loaded.nnodes / secs,
         "final_chi2": final, "counters": c,
         "golden_counters": entry.get("counters"),
+        "epochs": epochs_of(c), "golden_epochs": entry.get("epochs"),
         "sync_debug": syncs.summary(), "tri_inv_launches": launches,
         "tri_inv_launches_by_shape": [
             {"shape": [B, N, N], "dtype": dt, "launches": n}
@@ -485,11 +529,14 @@ def run_superstep(K, card: str, name: str, entry: dict,
     print(json.dumps(summary), flush=True)
     if not np.isfinite(final):
         bad.append("non-finite final chi2")
+    if "epochs" in entry and epochs_of(c) != entry["epochs"]:
+        bad.append(f"epochs {epochs_of(c)} != golden {entry['epochs']}")
     if syncs.sites:
         bad.append(f"synchronizing calls in superstep dispatches: "
                    f"{dict(syncs.sites)}")
     if launches != swept or sum(by_shape.values()) != launches:
-        bad.append(f"tri_inv launched {launches} times for {swept} sweeps")
+        bad.append(f"tri_inv launched {launches} times for {swept} sweeps "
+                   "and panel epochs")
     if name == "windowed":
         wins = by_shape.get((8, 384, "float64"), 0)
         if c["sweep_win"] == 0 or wins < c["sweep_win"]:
@@ -497,6 +544,157 @@ def run_superstep(K, card: str, name: str, entry: dict,
                        "launches at [8,384,384]")
     if bad:
         raise AssertionError(f"superstep {name}: " + "; ".join(bad))
+    return by_shape
+
+
+def run_device_epochs(K, card: str) -> dict:
+    """Phase 8.  Returns the tri_inv launches by shape of the panel epoch
+    that is held against the host epoch."""
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.solver import BatchSolver, SolverConfig
+    from aprilsam_tpu_torch.solver.batch import run_batch_epoch
+
+    g = manhattan_world(3500, seed=0)
+    n = g.nnodes
+    tables = (g.ftype[:g.nfactors], g.fnodes[:g.nfactors])
+
+    def epoch(backend):
+        """The checked epoch from the graph's initial states, then the
+        median of 3 timed epochs after a warm-up (each from the states the
+        last left)."""
+        s = BatchSolver(SolverConfig(batch_backend=backend), device="cuda")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        info = s.solve(g)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        by_shape = dict(K.launches_by_shape)
+        snap = {k: getattr(s.ds, k)[:n].cpu().numpy()
+                for k in ("R_blocks", "y", "state")}
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            s.solve(g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        # a device epoch as the lagged policy runs it (lazy: no read of
+        # the device): the host's time to plan and enqueue it, median of 3
+        enqueue = []
+        if backend != "host":
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.ds, _sym, _info, _b = run_batch_epoch(
+                    s.ds, s.cfg, n, *tables, log_mode=2, lazy=True)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+        return (s, info, snap, by_shape, median(times[1:]), first,
+                median(enqueue) if enqueue else None)
+
+    def host_phases(cfg):
+        """The host's work before a device epoch's first operation: the
+        native symbolic phase and, for the panel epoch, its plan; ms,
+        median of 3 (None where there is no plan)."""
+        from aprilsam_tpu_torch.solver.batch import epoch_symbolic
+        from aprilsam_tpu_torch.solver.panel_epoch import build_panel_plan
+
+        sym_ms, plan_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sym, _pat, _valid = epoch_symbolic(cfg, n, *tables)
+            t1 = time.perf_counter()
+            sym_ms.append((t1 - t0) * 1e3)
+            if cfg.batch_backend == "panel":
+                build_panel_plan(cfg, n, sym, sym.pad_idx, sym.pad_nnz,
+                                 *tables)
+                plan_ms.append((time.perf_counter() - t1) * 1e3)
+        return median(sym_ms), median(plan_ms) if plan_ms else None
+
+    h_s, h_info, h_snap, _h_shapes, h_ms, _, _ = epoch("host")
+    panel_shapes = {}
+    for backend in ("device", "panel"):
+        s, info, snap, by_shape, ms, first, enqueue_ms = epoch(backend)
+        err = {k: float(np.max(np.abs(snap[k] - h_snap[k]))) for k in snap}
+        rel = abs(info.chi2 - h_info.chi2) / abs(h_info.chi2)
+        same_order = bool(np.array_equal(s.sym.order, h_s.sym.order))
+        sym_ms, plan_ms = host_phases(s.cfg)
+        print(json.dumps({
+            "phase": f"epoch-{'dense' if backend == 'device' else 'panel'}",
+            "card": card, "graph": "manhattan_world(3500, seed=0)",
+            "dtype": "float64", "ms": ms, "host_epoch_ms": h_ms,
+            "lazy_enqueue_ms": enqueue_ms, "host_symbolic_ms": sym_ms,
+            "host_panel_plan_ms": plan_ms,
+            "first_call_s": first, "chi2": info.chi2,
+            "host_chi2": h_info.chi2, "chi2_rel_err": rel,
+            "max_abs_err": err, "same_order": same_order, "spd": info.spd,
+            "tol": EPOCH_TOL,
+            "tri_inv_launches_by_shape": [
+                {"shape": [B, N, N], "dtype": dt, "launches": c}
+                for (B, N, dt), c in sorted(by_shape.items())]}),
+            flush=True)
+        bad = [k for k in err if not err[k] <= EPOCH_TOL[k]]
+        if not (same_order and info.spd and rel <= EPOCH_TOL["chi2_rel"]) \
+                or bad:
+            raise AssertionError(
+                f"{backend} epoch vs host: order {same_order}, spd "
+                f"{info.spd}, chi2 rel {rel}, errors {err}")
+        want = {(32, 384, "float64"): 1} if backend == "panel" else {}
+        if by_shape != want:
+            raise AssertionError(f"{backend} epoch launched tri_inv "
+                                 f"{by_shape}, expected {want}")
+        if backend == "panel":
+            panel_shapes = by_shape
+    return panel_shapes
+
+
+def run_bundled(K, card: str, name: str, entry: dict, poses: int) -> dict:
+    """Phase 10, one config: the per-step replay of manhattan_world(poses,
+    seed=0) in bundles, deferred, on the card.  Returns the tri_inv
+    launches by shape."""
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+
+    loaded = manhattan_world(poses, seed=0)
+    rep = Replay(loaded, golden_config(entry), deferred=True, device="cuda")
+    solver = rep.solver
+    syncs = SyncCounter(solver, bundles=True)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rep.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, by_shape = K.launches, dict(K.launches_by_shape)
+    final = solver.chi2()
+    c = solver.counters
+    census = {p: sum(r.path == p for r in res) for p in ("fast", "full",
+                                                          "batch")}
+    sweeps = c["full"] - c["full_coalesced"] + c["sweep_coalesced"]
+    want = entry["final_chi2"]
+    print(json.dumps({
+        "phase": name,
+        "card": card, "config": entry["config"],
+        "graph": f"manhattan_world({poses}, seed=0)", "steps": len(res),
+        "seconds": secs, "poses_per_s": len(res) / secs,
+        "final_chi2": final, "golden_final_chi2": want, "census": census,
+        "golden_census": entry.get("census"), "counters": c,
+        "epochs": epochs_of(c), "golden_epochs": entry.get("epochs"),
+        "sync_debug": syncs.summary(), "tri_inv_launches": launches,
+        "tri_inv_launches_by_shape": [
+            {"shape": [B, N, N], "dtype": dt, "launches": k}
+            for (B, N, dt), k in sorted(by_shape.items())]}), flush=True)
+    bad = []
+    if not abs(final - want) < CHI2_BAND:
+        bad.append(f"final chi2 {final!r} vs {want!r}")
+    if syncs.sites:
+        bad.append(f"synchronizing calls in bundle dispatches: "
+                   f"{dict(syncs.sites)}")
+    if syncs.dispatches == 0:
+        bad.append("no bundle was dispatched")
+    if launches != sweeps or sum(by_shape.values()) != launches:
+        bad.append(f"tri_inv launched {launches} times for {sweeps} sweeps")
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
     return by_shape
 
 
@@ -579,13 +777,35 @@ def main() -> int:
     paths = {"per-step": by_shape}
 
     # 6-7. the throughput replays, then the CLI with --graphpath
-    head, ring = read_super_golden()
+    head, ring, _ = read_super_golden()
     paths["superstep-ring"] = run_superstep(K, smi, "ring", head, ring)
     for name in ("bench", "windowed"):
         paths[f"superstep-{name}"] = run_superstep(K, smi, name, head[name])
     paths["cli-graphpath"] = run_graphpath(K, smi, head["cli"])
 
-    # 8. the kernels line, the card, the result; K1's share of each replay
+    # 8-10. the device epochs, the panel-backend superstep replays, the
+    # bundled replays; each phase prints its seconds
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(json.dumps({"phase_seconds": name,
+                          "seconds": time.perf_counter() - t}), flush=True)
+        return out
+
+    paths["epoch-panel"] = phase("device-epochs", run_device_epochs, K, smi)
+    head, ring, _ = read_super_golden(PANEL_GOLDEN)
+    paths["superstep-panel-ring"] = phase(
+        "superstep-panel-ring", run_superstep, K, smi, "panel-ring", head,
+        ring)
+    paths["superstep-panel-bench"] = phase(
+        "superstep-panel-bench", run_superstep, K, smi, "panel-bench",
+        head["bench"])
+    head, _ring, poses = read_super_golden(BUNDLED_GOLDEN)
+    for name in ("bundled", "bundled-coalesced"):
+        paths[name] = phase(name, run_bundled, K, smi, name, head[name],
+                            poses)
+
+    # 11. the kernels line, the card, the result; K1's share of each replay
     # is its launches at each shape times that shape's time from phase 3
     for counts in paths.values():
         for key in counts:

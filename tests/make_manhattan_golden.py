@@ -24,6 +24,28 @@ and the final chi2 of three lagged configs: the bench's (``policy_lag=3``,
     JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --superstep 96 \
         --out aprilsam_tpu_torch/golden/manhattan3500_seed0_super96.txt
 
+With ``--superstep S --batch_backend panel`` the superstep golden runs
+the ring and bench configs with the panel batch epoch instead of the host
+one; every header records the replay's batch epochs by the backend that
+ran them (``epochs``: panel, dense, host), counted by wrapping the JAX
+package's epoch functions for the run.
+
+    JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --superstep 96 \
+        --batch_backend panel \
+        --out aprilsam_tpu_torch/golden/manhattan3500_seed0_super96_panel.txt
+
+With ``--bundled B`` it writes the bundled per-step golden: header lines
+only, the final chi2, counters, path census and epochs of two per-step
+replays in deferred mode at ``bundle_size=B``, ``policy_lag=B`` with mixed
+bundles, without (``bundled``) and with (``bundled-coalesced``)
+``coalesce_full_solves``.  Each bundle dispatch is waited for, so that the
+lagged policy always reads the newest due stats: the JAX package reads the
+newest that are ready, and on its asynchronous CPU backend that is a race
+whose outcome moves the final chi2 by several units at a thousand poses.
+
+    JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --bundled 8 \
+        --out aprilsam_tpu_torch/golden/manhattan3500_seed0_bundled8.txt
+
 ``chip_smoke.py`` holds the port's replays on the card against these files.
 """
 
@@ -34,6 +56,7 @@ import json
 import os
 import sys
 import time
+from collections import Counter
 
 import jax
 
@@ -49,11 +72,17 @@ from aprilsam_tpu.solver import SolverConfig  # noqa: E402
 BENCH_BUCKETS = (64, 128, 256, 384, 640, 1024)
 
 
-def superstep_configs(S: int) -> dict:
+def superstep_configs(S: int, backend: str = "auto") -> dict:
     """The superstep replays of the golden, by name: keyword arguments of
-    SolverConfig on top of ``wallclock_gate=False``."""
+    SolverConfig on top of ``wallclock_gate=False``.  With the panel
+    backend, the ring and bench configs only."""
     bench = dict(superstep_size=S, superstep_buckets=BENCH_BUCKETS,
                  policy_lag=3, policy_poll=2, log_chi2=False)
+    if backend != "auto":
+        bench["batch_backend"] = backend
+        return {"ring": dict(bench, policy_lag=0, policy_poll=1,
+                             log_chi2=True),
+                "bench": bench}
     return {
         "ring": dict(bench, policy_lag=0, policy_poll=1, log_chi2=True),
         "bench": bench,
@@ -62,30 +91,82 @@ def superstep_configs(S: int) -> dict:
     }
 
 
-def _superstep_run(g, kw: dict):
+def bundled_configs(B: int) -> dict:
+    """The bundled per-step replays of the golden, by name."""
+    bundled = dict(bundle_size=B, policy_lag=B, mixed_bundles=True)
+    return {"bundled": bundled,
+            "bundled-coalesced": dict(bundled, coalesce_full_solves=True)}
+
+
+EPOCHS = Counter()
+
+
+def count_epochs() -> None:
+    """Count the batch epochs by the backend that ran them, by wrapping the
+    JAX package's epoch functions for the life of this process (the
+    package looks each of them up by module attribute at call time)."""
+    from aprilsam_tpu.solver import batch, host_batch, panel_epoch
+
+    for mod, name, key in ((panel_epoch, "panel_epoch_step", "panel"),
+                           (batch, "_batch_step", "dense"),
+                           (host_batch, "host_batch_epoch", "host")):
+        orig = getattr(mod, name)
+
+        def counted(*a, _orig=orig, _key=key, **kw):
+            EPOCHS[_key] += 1
+            return _orig(*a, **kw)
+
+        setattr(mod, name, counted)
+
+
+def _wait_each_dispatch(solver) -> None:
+    """Make a lagged replay deterministic: the policy reads the newest due
+    stats that are ready, else the oldest due, and on the asynchronous CPU
+    backend readiness is a race; waiting for each bundle dispatch makes
+    every due entry ready, so the policy always reads the newest."""
+    dispatch = solver._dispatch_queue
+
+    def waited():
+        dispatch()
+        jax.block_until_ready(solver.ds)
+    solver._dispatch_queue = waited
+
+
+def _replay(g, kw: dict, wait: bool = False):
+    """One deferred replay (with `wait`, every stats entry is ready when it
+    is due); returns (solver, seconds, path census, epochs by backend)."""
     cfg = SolverConfig(wallclock_gate=False, **kw)
     rep = Replay(g, cfg, deferred=True)
+    if wait:
+        _wait_each_dispatch(rep.solver)
+    EPOCHS.clear()
     t0 = time.perf_counter()
-    rep.run()
+    res = rep.run()
     secs = time.perf_counter() - t0
-    return rep.solver, secs
+    census = {p: sum(r.path == p for r in res)
+              for p in ("fast", "full", "batch", "super")}
+    epochs = {k: EPOCHS[k] for k in ("panel", "dense", "host")}
+    return rep.solver, secs, census, epochs
 
 
 def write_superstep(args) -> None:
     g = manhattan_world(args.poses, seed=args.seed)
-    cfgs = superstep_configs(args.superstep)
-    solver, secs = _superstep_run(g, cfgs["ring"])
+    cfgs = superstep_configs(args.superstep, args.batch_backend)
+    solver, secs, _census, epochs = _replay(g, cfgs["ring"])
     hist = solver.chi2_history()
     head = {"config": {"wallclock_gate": False, **cfgs["ring"]},
-            "counters": dict(solver.counters)}
+            "counters": dict(solver.counters), "epochs": epochs,
+            "seconds": secs}
     print(f"ring: {len(hist)} entries in {secs:.1f} s, counters "
-          f"{solver.counters}, final chi2 {solver.chi2()!r}")
-    for name in ("bench", "windowed", "cli"):
-        s, secs = _superstep_run(g, cfgs[name])
+          f"{solver.counters}, epochs {epochs}, final chi2 "
+          f"{solver.chi2()!r}")
+    for name in [k for k in cfgs if k != "ring"]:
+        s, secs, _census, epochs = _replay(g, cfgs[name])
         head[name] = {"config": {"wallclock_gate": False, **cfgs[name]},
-                      "final_chi2": s.chi2(), "counters": dict(s.counters)}
+                      "final_chi2": s.chi2(), "counters": dict(s.counters),
+                      "epochs": epochs, "seconds": secs}
         print(f"{name}: final chi2 {s.chi2()!r} in {secs:.1f} s, counters "
-              f"{s.counters}")
+              f"{s.counters}, epochs {epochs}")
     with open(args.out, "w") as f:
         f.write(f"# manhattan_world({args.poses}, seed={args.seed}), JAX "
                 "package on the CPU, float64, Replay(deferred=True); "
@@ -94,6 +175,26 @@ def write_superstep(args) -> None:
             f.write(f"# {key} {json.dumps(val, sort_keys=True)}\n")
         for i, c in enumerate(hist):
             f.write(f"{i} {float(c)!r}\n")
+
+
+def write_bundled(args) -> None:
+    g = manhattan_world(args.poses, seed=args.seed)
+    head = {}
+    for name, kw in bundled_configs(args.bundled).items():
+        s, secs, census, epochs = _replay(g, kw, wait=True)
+        head[name] = {"config": {"wallclock_gate": False, **kw},
+                      "final_chi2": s.chi2(), "counters": dict(s.counters),
+                      "census": census, "epochs": epochs, "seconds": secs}
+        print(f"{name}: final chi2 {s.chi2()!r} in {secs:.1f} s, census "
+              f"{census}, counters {s.counters}, epochs {epochs}")
+    with open(args.out, "w") as f:
+        f.write(f"# manhattan_world({args.poses}, seed={args.seed}), JAX "
+                "package on the CPU, float64, Replay(deferred=True), per "
+                "step in bundles, each bundle dispatch waited for (the "
+                "policy reads the newest due stats); header lines only: "
+                "# key json\n")
+        for key, val in head.items():
+            f.write(f"# {key} {json.dumps(val, sort_keys=True)}\n")
 
 
 def write_per_step(args) -> None:
@@ -122,9 +223,18 @@ def main(argv=None) -> int:
     ap.add_argument("--superstep", type=int, default=1,
                     help="write the superstep golden at this superstep_size "
                          "(1 = the per-step golden)")
+    ap.add_argument("--batch_backend", default="auto",
+                    choices=["auto", "panel", "device"],
+                    help="batch epoch backend of the superstep golden")
+    ap.add_argument("--bundled", type=int, default=0,
+                    help="write the bundled per-step golden at this "
+                         "bundle_size")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
-    if args.superstep > 1:
+    count_epochs()
+    if args.bundled > 1:
+        write_bundled(args)
+    elif args.superstep > 1:
         write_superstep(args)
     else:
         write_per_step(args)

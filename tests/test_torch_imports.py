@@ -1,7 +1,7 @@
 """The port stands alone: no module of aprilsam_tpu_torch, and neither
 chip_smoke.py nor profile_torch_replay.py, imports JAX or the JAX package;
 its entry points run on the card unless asked for the CPU; the throughput
-settings run on the CPU; settings of later slices raise."""
+settings, bundles and device batch epochs run on the CPU."""
 
 import json
 import os
@@ -47,6 +47,7 @@ def test_port_has_the_slice_modules():
               "utils.timeprofile", "native", "solver.symbolic", "factors",
               "kernels.linalg3", "solver.state", "solver.ingest",
               "solver.batch", "solver.host_batch", "kernels.tri_inv",
+              "kernels.assembly", "solver.panel_epoch",
               "kernels.sweep", "solver.incremental", "replay", "cli"):
         assert f"aprilsam_tpu_torch.{m}" in mods, m
     assert os.path.exists(os.path.join(PKG, "csrc", "tri_inv.cu"))
@@ -149,11 +150,23 @@ UNPORTED = [
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: "-".join(
     f"{k}={v}" for k, v in kw.items()))
 def test_unported_settings_raise(kw):
-    cfg = SolverConfig(**kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        IncrementalSolver(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        BatchSolver(cfg, device="cpu")
+    """The settings that raised NotImplementedError until the port had
+    bundled dispatch and the device batch epochs now construct and run in
+    both solvers."""
+    g = manhattan_world(30, seed=0)
+    cfg = SolverConfig(node_capacity=64, panel_nodes=8, wallclock_gate=False,
+                       policy_lag=2, **kw)
+    info = BatchSolver(cfg, device="cpu").solve(g)
+    assert info.spd and np.isfinite(info.chi2)
+    rep = Replay(g, cfg, deferred=True, device="cpu")
+    rep.run()
+    s = rep.solver
+    assert np.isfinite(s.chi2())
+    if kw.get("batch_backend") in ("device", "panel"):
+        ran = "epoch_panel" if kw["batch_backend"] == "panel" else \
+            "epoch_dense"
+        assert s.counters[ran] == s.counters["batch"] >= 1
+    assert not s._queue and not s._pending
 
 
 THROUGHPUT = {
@@ -175,7 +188,6 @@ def test_throughput_settings_run_on_cpu(case, tmp_path, capsys):
     small = dict(node_capacity=64, panel_nodes=8, wallclock_gate=False)
     if case in THROUGHPUT:
         cfg = SolverConfig(**small, **THROUGHPUT[case])
-        assert cfg.unported_settings() == []
         assert BatchSolver(cfg, device="cpu").solve(g).spd
         rep = Replay(g, cfg, deferred=True, device="cpu")
         rep.run()

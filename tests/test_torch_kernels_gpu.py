@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the device
+batch epochs (which run K1) against the host epoch, on the card.
 
 Needs an NVIDIA card and nvcc; every test here carries the `gpu` marker and
 skips without a card.  The file imports neither JAX nor the JAX package, so
@@ -121,3 +122,48 @@ def test_panel_backsub_on_the_card_matches_the_cpu():
     torch.cuda.synchronize()
     assert K.launches == before + 1
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,k1", [("device", 0), ("panel", 1)])
+def test_device_epochs_on_the_card_match_the_host_epoch(backend, k1):
+    """The dense and the panel batch epoch on the card against the native
+    host epoch on manhattan_world(700): the same ordering, R and y within
+    1e-7, states within 1e-8 (the JAX package's tolerances,
+    tests/test_batch.py:135-143) and chi2 within 1e-9 relative; the panel
+    epoch's back-substitution launches K1 once."""
+    _need_card()
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.solver.batch import run_batch_epoch
+    from aprilsam_tpu_torch.solver.config import SolverConfig
+    from aprilsam_tpu_torch.solver.host_batch import host_batch_epoch
+    from aprilsam_tpu_torch.solver.ingest import ingest_graph
+    from aprilsam_tpu_torch.solver.state import init_device_state
+
+    g = manhattan_world(700, seed=0)
+    nf = g.nfactors
+    tables = (g.ftype[:nf], g.fnodes[:nf])
+    cfg = SolverConfig(node_capacity=1024, factor_capacity=2048,
+                       row_block_capacity=96, panel_nodes=128,
+                       batch_backend=backend)
+
+    def state(device):
+        return ingest_graph(init_device_state(cfg, device), g, cfg, 0, 0)
+
+    before = K.launches
+    ds, sym, info, ran = run_batch_epoch(state("cuda"), cfg, g.nnodes,
+                                         *tables)
+    torch.cuda.synchronize()
+    assert ran == ("panel" if backend == "panel" else "dense")
+    assert K.launches == before + k1
+    ds_h, sym_h, info_h = host_batch_epoch(state("cpu"), cfg, g.nnodes,
+                                           *tables, g.fz[:nf], g.fW[:nf])
+    np.testing.assert_array_equal(sym.order, sym_h.order)
+    assert info.spd and info_h.spd
+    assert abs(info.chi2 - info_h.chi2) < 1e-9 * abs(info_h.chi2)
+    for name, tol in (("R_blocks", 1e-7), ("y", 1e-7)):
+        np.testing.assert_allclose(getattr(ds, name).cpu().numpy(),
+                                   getattr(ds_h, name).numpy(), rtol=0,
+                                   atol=tol, err_msg=name)
+    np.testing.assert_allclose(ds.state[:700].cpu().numpy(),
+                               ds_h.state[:700].numpy(), rtol=0, atol=1e-8)

@@ -95,6 +95,11 @@ def gn_blocks_xyt(ev: XytEval, W):
     return Haa, Hab, Hba, Hbb, ga, gb
 
 
+def gn_blocks_xytpos(ev: XytposEval, W):
+    """Gauss-Newton blocks of prior factors: H = W (J = I), g = W r."""
+    return W, torch.einsum("fij,fj->fi", W, ev.r)
+
+
 def _quad_form(W, r0, r1, r2):
     """sum_ij W_ij r_i r_j with W used exactly as stored."""
     return (W[:, 0, 0] * r0 * r0 + W[:, 1, 1] * r1 * r1

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ..factors import eval_xyt, eval_xytpos, gn_blocks_xyt
+from ..factors import eval_xyt, eval_xytpos, gn_blocks_xyt, gn_blocks_xytpos
 
 
 def _add_blocks(dense, n3: int, pr, pc, H) -> None:
@@ -55,10 +55,11 @@ def assemble_block_dense(l_points, states, pos, xyt_a, xyt_b, xyt_z, xyt_W,
         B.index_add_(0, pb, gb)
 
     if pos_node.shape[0]:
-        ev = eval_xytpos(states, pos_node, pos_z, pos_W)
+        H, g = gn_blocks_xytpos(eval_xytpos(states, pos_node, pos_z, pos_W),
+                                pos_W)
         pp = pos[pos_node]
-        _add_blocks(dense, n3, pp, pp, pos_W)           # J = I so H = W
-        B.index_add_(0, pp, torch.einsum("fij,fj->fi", pos_W, ev.r))
+        _add_blocks(dense, n3, pp, pp, H)
+        B.index_add_(0, pp, g)
 
     # the upper mirror in place (one temporary of the matrix's size)
     dense.triu_()

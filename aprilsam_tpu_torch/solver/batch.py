@@ -57,11 +57,13 @@ def node_bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
-def nan_if_failed(L: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
-    """jnp.linalg.cholesky's contract on top of torch.linalg.cholesky_ex:
-    the whole factor is NaN where the matrix was not SPD (info > 0), so a
-    partial factor cannot leak past the NaN guards.  No synchronization."""
-    return L.masked_fill_(info > 0, float("nan"))
+def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
+    """jnp.linalg.cholesky's contract on top of torch.linalg.cholesky_ex
+    (which raises where jnp returns NaN): each factor of the batch is
+    wholly NaN where its matrix was not SPD (info > 0), so a partial factor
+    cannot leak past the NaN guards.  No synchronization."""
+    L, info = torch.linalg.cholesky_ex(A)
+    return L.masked_fill_((info > 0)[..., None, None], float("nan"))
 
 
 def refresh_states(ds: DeviceState, l_point: torch.Tensor,
@@ -123,9 +125,8 @@ def _batch_step(ds: DeviceState, T: Dict[str, torch.Tensor], tikhonov: float,
         # the stored factor satisfies L L^T = A
         dvec = torch.rsqrt(torch.clamp(torch.diagonal(A), min=1e-30))
         A.mul_(dvec[:, None]).mul_(dvec[None, :])
-        Ls, info = torch.linalg.cholesky_ex(A)
+        Ls = cholesky_nan(A)
         del A
-        nan_if_failed(Ls, info)
         # y: L y = B; x: L^T x = y (smatd_chol_solve_full, smatd.c:1100-1114)
         y = torch.linalg.solve_triangular(Ls, (dvec * B)[:, None],
                                           upper=False)

@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import torch_dtype
+
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
@@ -125,8 +127,7 @@ class SolverConfig:
 
     @property
     def torch_dtype(self) -> torch.dtype:
-        return {np.dtype(np.float64): torch.float64,
-                np.dtype(np.float32): torch.float32}[np.dtype(self.dtype)]
+        return torch_dtype(self.dtype)
 
     @property
     def effective_gn_iters(self) -> int:

@@ -1564,6 +1564,29 @@ class IncrementalSolver:
                 "length")
         return self.ds.chi2_log[:n].cpu().numpy()
 
+    def describe_tree(self, max_nodes: int = 50) -> str:
+        """Human-readable elimination-tree dump (search_tree_print parity,
+        aprilsam.c:677-690): per node its position, parent, children."""
+        if self.sym is None:
+            return "<no tree: run solve() first>"
+        sym = self.sym
+        if getattr(sym, "patterns_stale", False):
+            # the native planner maintains parents and pads only
+            sym.rebuild_children()
+        patterns = sym_patterns_list(sym)
+        lines = [f"root position: {sym.nnodes - 1} "
+                 f"(node {int(sym.order[sym.nnodes - 1])}), "
+                 f"nnodes: {sym.nnodes}"]
+        for p in range(min(sym.nnodes, max_nodes)):
+            kids = ",".join(str(c) for c in sym.children[p])
+            lines.append(
+                f" pos {p} (node {int(sym.order[p])}): "
+                f"parent={int(sym.parents[p])} children=[{kids}] "
+                f"nnz={len(patterns[p])}")
+        if sym.nnodes > max_nodes:
+            lines.append(f" ... ({sym.nnodes - max_nodes} more)")
+        return "\n".join(lines)
+
     def sync_states(self, g: FactorGraph) -> None:
         self._dispatch_queue()
         n = g.nnodes

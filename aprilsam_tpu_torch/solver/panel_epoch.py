@@ -39,7 +39,7 @@ import torch
 from ..factors import eval_xyt, eval_xytpos, gn_blocks_xyt
 from ..graph import FACTOR_XYT
 from ..kernels.sweep import panel_backsub
-from .batch import finish_epoch, full_maps, nan_if_failed, refresh_states
+from .batch import cholesky_nan, finish_epoch, full_maps, refresh_states
 from .config import SolverConfig
 from .state import DeviceState, upload
 from .symbolic import SymbolicState
@@ -344,8 +344,7 @@ def panel_epoch_step(ds: DeviceState, plan: PanelEpochPlan, tikhonov: float,
         Su = Acomb[:, P3:] - G[:, P3:]
         by = bvec[r0:r1] - gy
 
-        Ls, info = torch.linalg.cholesky_ex(S)
-        nan_if_failed(Ls, info)
+        Ls = cholesky_nan(S)
         diag = torch.diagonal(Ls)
         spd = spd & torch.all(torch.where(
             act3[r0:r1], torch.isfinite(diag) & (diag > 0), True))

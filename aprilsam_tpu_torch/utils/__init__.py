@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .timeprofile import TimeProfile
@@ -32,4 +33,10 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-__all__ = ["TimeProfile", "resolve_device", "setup_precision"]
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a numpy float dtype (float32 or float64)."""
+    return {np.dtype(np.float64): torch.float64,
+            np.dtype(np.float32): torch.float32}[np.dtype(dtype)]
+
+
+__all__ = ["TimeProfile", "resolve_device", "setup_precision", "torch_dtype"]

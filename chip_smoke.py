@@ -21,10 +21,11 @@ and prints no result line):
      7.805041);
   5. the main path: Replay(manhattan_world(3500, seed=0)) on the card in
      float64 with the default SolverConfig and the wall-clock gate off,
-     held against the JAX package's golden (aprilsam_tpu_torch/golden/):
-     per-step chi2 and the fast/full/batch census; the tri_inv launch
-     count of that run, and the sum of its counts by shape, equal its
-     full-path dispatches;
+     step by step, held against the JAX package's golden
+     (aprilsam_tpu_torch/golden/): per-step chi2, path and the
+     fast/full/batch census; the tri_inv launch count of that run, and the
+     sum of its counts by shape, equal its full-path dispatches; after
+     step CHECKPOINT_AT it saves the solver (checkpoint.save_solver);
   6. the throughput replays of the same graph, float64, in deferred mode
      at superstep_size=96 with the bench's union buckets, held against the
      JAX package's superstep golden: at policy_lag=0 (log_chi2 on) every
@@ -59,7 +60,18 @@ and prints no result line):
      the JAX package's bundled golden, no synchronizing call inside a
      bundle dispatch, and K1 launched once per full step whose sweep was
      not coalesced plus once per coalesced sweep;
- 11. one JSON line listing every ported kernel, with K1's launches on each
+ 11. checkpoint resume: a fresh solver loaded on the card from phase 5's
+     file replays the remaining steps, held to the same golden lines and
+     census; the file's bytes, the save and load ms, and K1's launches
+     (path "checkpoint-resume");
+ 12. the distributed solves on a one-rank NCCL group: the multi-rank dry
+     run (parallel/dryrun.py), then schur_solve on
+     manhattan_world(100000, seed=0, closure_prob=0.02) in 64 blocks, two
+     Gauss-Newton iterations, with the replicated and the block-cyclic
+     separator, float64 (held to each other and to the host BatchSolver,
+     SCHUR_TOL) and float32 (to each other); the partition's sizes, ms per
+     iteration and peak device memory of each run;
+ 13. one JSON line listing every ported kernel, with K1's launches on each
      path and by shape, and their launch-weighted kernel and library
      times; the card's line; and the result line
      {"ok": true, "device": {...}}.
@@ -69,6 +81,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -101,6 +114,22 @@ CHI2_BAND = 0.05   # the JAX package's own band for lagged superstep runs
 # 4.6e-9 relative in chi2, 1.9e-8 in R, 2.9e-8 in y and 1.3e-7 in the
 # states (the panel epoch; the dense one is closer)
 EPOCH_TOL = {"chi2_rel": 1e-7, "R_blocks": 1e-6, "y": 1e-6, "state": 1e-6}
+# phase 5 saves the solver after this many steps; phase 11 resumes there
+CHECKPOINT_AT = 1750
+# phase 12: SCALING.md's workload, manhattan_world(100000, seed=0,
+# closure_prob=0.02) in 64 keyframe blocks, two Gauss-Newton iterations.
+# The separator modes solve the same system: held to each other to the JAX
+# package's figures, float64 1e-8 (assert_allclose(rtol=1e-8, atol=1e-8),
+# tests/test_pchol.py:77, at 400 poses) and float32 5e-2 (its dry run, at
+# 2048 poses), each read in the infinity norm, |a - b| / (1 + |b|).  Entry
+# by entry, two roundings drift apart as the graph and its coordinates
+# grow: here, 1e-8 to 2e-8 in float64 and 0.08 in float32, in xy, while
+# the norm-wise difference is near 1e-11 in float64 (PERF.md section 6).
+# The decomposition matches the monolithic host batch solve in float64
+# (tests/test_distributed.py's 1e-5).  Angles are compared mod 2pi.
+SCHUR_POSES, SCHUR_BLOCKS, SCHUR_GN = 100000, 64, 2
+SCHUR_TOL = {"float64_modes": 1e-8, "float32_modes": 5e-2,
+             "chi2_rel_vs_batch": 1e-5, "xy_vs_batch": 1e-5}
 
 # Published peaks (NVIDIA data sheets, dense), keyed by the exact name
 # torch.cuda.get_device_name reports: memory bytes/s, and the float64 (FP64
@@ -320,35 +349,25 @@ def read_golden():
     return paths, np.asarray(chi2)
 
 
-def run_main_path(K, card: str) -> tuple:
-    """Phase 5.  Returns the tri_inv launches of the run, and those
+def check_replay(K, name: str, card: str, rep, res, secs: float,
+                 first: int, extra: dict) -> dict:
+    """Hold steps first.. of a per-step replay of the golden's graph to the
+    golden: chi2 per step from the metric ring, the path per step, the
+    census, and tri_inv launched once per full-path dispatch.  Returns the
     launches by (B, N, dtype name)."""
-    from aprilsam_tpu_torch.datasets import manhattan_world
-    from aprilsam_tpu_torch.replay import Replay
-    from aprilsam_tpu_torch.solver import SolverConfig
-
     gold_paths, gold_chi2 = read_golden()
     n = len(gold_paths)
-    loaded = manhattan_world(n, seed=0)
-    rep = Replay(loaded, SolverConfig(wallclock_gate=False), device="cuda")
-    if rep.solver.ds.state.dtype != torch.float64:
-        raise AssertionError("the main path runs in float64")
-    K.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = rep.run()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
     launches = K.launches
     by_shape = dict(K.launches_by_shape)
-
     hist = rep.solver.chi2_history()
+    if len(res) != n - first or hist.shape != (n,):
+        raise AssertionError(f"{name}: {len(res)} steps, {hist.shape} chi2 "
+                             f"entries; golden has {n}")
+    hist, gold_chi2, gold_paths = hist[first:], gold_chi2[first:], \
+        gold_paths[first:]
     paths = [r.path for r in res]
-    if len(res) != n or hist.shape != (n,):
-        raise AssertionError(f"{len(res)} steps, {hist.shape} chi2 entries; "
-                             f"golden has {n}")
     if not np.all(np.isfinite(hist)):
-        raise AssertionError("non-finite chi2 in the replay")
+        raise AssertionError(f"{name}: non-finite chi2 in the replay")
     # relative 1e-6; chi2 values at rounding level of zero (the first steps,
     # ~1e-28) are compared absolutely
     diff = np.abs(hist - gold_chi2)
@@ -357,11 +376,12 @@ def run_main_path(K, card: str) -> tuple:
     gold_census = {p: gold_paths.count(p) for p in ("fast", "full", "batch")}
     path_mismatch = sum(a != b for a, b in zip(paths, gold_paths))
     full_dispatches = rep.solver.counters["full"]
+    steps = n - first
     summary = {
-        "phase": "replay", "graph": f"manhattan_world({n}, seed=0)",
-        "dtype": "float64", "card": card, "steps": n,
-        "seconds": secs, "poses_per_s": n / secs,
-        "mean_step_ms": secs * 1e3 / n,
+        "phase": name, "graph": f"manhattan_world({n}, seed=0)",
+        "dtype": "float64", "card": card, "steps": f"{first}..{n - 1}",
+        "seconds": secs, "poses_per_s": steps / secs,
+        "mean_step_ms": secs * 1e3 / steps, **extra,
         "final_chi2": float(hist[-1]), "golden_final_chi2": gold_chi2[-1],
         "max_rel_chi2_err": float(np.max(diff / np.maximum(
             np.abs(gold_chi2), 1e-12))),
@@ -376,18 +396,191 @@ def run_main_path(K, card: str) -> tuple:
     if len(bad):
         k = int(bad[0])
         raise AssertionError(
-            f"chi2 differs from the golden at {len(bad)} steps; first at "
-            f"step {k}: {hist[k]!r} vs {gold_chi2[k]!r}")
-    if census != gold_census:
-        raise AssertionError(f"census {census} != golden {gold_census}")
-    if launches != full_dispatches or launches < gold_census["full"]:
+            f"{name}: chi2 differs from the golden at {len(bad)} steps; first "
+            f"at step {first + k}: {hist[k]!r} vs {gold_chi2[k]!r}")
+    if census != gold_census or path_mismatch:
+        raise AssertionError(f"{name}: census {census} != golden "
+                             f"{gold_census}, {path_mismatch} paths differ")
+    if launches != full_dispatches or launches < gold_census["full"] \
+            or launches == 0:
         raise AssertionError(
-            f"tri_inv launched {launches} times for {full_dispatches} "
-            "full-path dispatches")
+            f"{name}: tri_inv launched {launches} times for "
+            f"{full_dispatches} full-path dispatches")
     if sum(by_shape.values()) != launches:
-        raise AssertionError(f"tri_inv launches by shape {by_shape} do not "
-                             f"sum to {launches}")
-    return launches, by_shape
+        raise AssertionError(f"{name}: tri_inv launches by shape {by_shape} "
+                             f"do not sum to {launches}")
+    return by_shape
+
+
+def run_main_path(K, card: str, ckpt_path: str) -> tuple:
+    """Phase 5.  Saves the solver to ckpt_path after CHECKPOINT_AT steps
+    and goes on.  Returns the tri_inv launches by (B, N, dtype name) and
+    what phase 11 resumes from."""
+    from aprilsam_tpu_torch.checkpoint import save_solver
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+    from aprilsam_tpu_torch.solver import SolverConfig
+
+    n = len(read_golden()[0])
+    loaded = manhattan_world(n, seed=0)
+    rep = Replay(loaded, SolverConfig(wallclock_gate=False), device="cuda")
+    if rep.solver.ds.state.dtype != torch.float64:
+        raise AssertionError("the main path runs in float64")
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = []
+    for k in range(n):
+        res.append(rep.step())
+        if k + 1 == CHECKPOINT_AT:
+            t = time.perf_counter()
+            save_solver(rep.solver, ckpt_path)
+            ckpt = {"graph": copy.deepcopy(rep.graph),
+                    "event_idx": rep.event_idx,
+                    "save_ms": (time.perf_counter() - t) * 1e3}
+    rep.finish()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0 - ckpt["save_ms"] / 1e3
+    return check_replay(K, "replay", card, rep, res, secs, 0, {
+        "checkpoint_save_ms": ckpt["save_ms"]}), ckpt
+
+
+def run_checkpoint_resume(K, card: str, ckpt_path: str, ckpt: dict) -> dict:
+    """Phase 11: a fresh solver loaded on the card from phase 5's
+    checkpoint replays the second half of the golden's steps, held to the
+    golden as phase 5 is.  Returns the tri_inv launches by shape."""
+    from aprilsam_tpu_torch.checkpoint import load_solver
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+    from aprilsam_tpu_torch.solver import SolverConfig
+
+    n = len(read_golden()[0])
+    rep = Replay(manhattan_world(n, seed=0), SolverConfig(
+        wallclock_gate=False), device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep.solver = load_solver(ckpt_path, device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t) * 1e3
+    rep.graph, rep.event_idx = ckpt["graph"], ckpt["event_idx"]
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = [rep.step() for _ in range(n - ckpt["event_idx"])]
+    rep.finish()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if rep.solver.python_planner or getattr(rep.solver.sym, "pad_idx",
+                                            None) is None:
+        raise AssertionError("the resumed replay did not plan natively")
+    return check_replay(K, "checkpoint-resume", card, rep, res, secs,
+                        ckpt["event_idx"], {
+                            "file_bytes": os.path.getsize(ckpt_path),
+                            "save_ms": ckpt["save_ms"], "load_ms": load_ms})
+
+
+def run_distributed(card: str) -> None:
+    """Phase 12, on a one-rank NCCL group: the multi-rank dry run, then the
+    keyframe-block Schur solve of SCALING.md's workload in float64 with both
+    separator modes, held to each other and to the host BatchSolver, and in
+    float32 with both modes, held to each other."""
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.geometry import np_mod2pi
+    from aprilsam_tpu_torch.parallel import one_rank_group
+    from aprilsam_tpu_torch.parallel.dryrun import dryrun_multichip
+    from aprilsam_tpu_torch.parallel.schur import partition_graph, schur_solve
+    from aprilsam_tpu_torch.solver import BatchSolver, SolverConfig
+
+    with one_rank_group("cuda") as mesh:
+        t = time.perf_counter()
+        dry = dryrun_multichip(mesh)
+        print(json.dumps({"phase": "dryrun_multichip", "card": card,
+                          "backend": torch.distributed.get_backend(), **dry,
+                          "seconds": time.perf_counter() - t}), flush=True)
+
+        t = time.perf_counter()
+        g = manhattan_world(SCHUR_POSES, seed=0, closure_prob=0.02)
+        gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        part = partition_graph(g, SCHUR_BLOCKS)
+        part_s = time.perf_counter() - t
+        runs = {}
+        for dtype in (np.float64, np.float32):
+            for mode, sep_dist in (("replicated", False),
+                                   ("distributed", True)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                st = schur_solve(mesh, g, part, gn_iters=SCHUR_GN,
+                                 dtype=dtype, sep_dist=sep_dist)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t
+                runs[np.dtype(dtype).name, mode] = (
+                    st, secs * 1e3 / SCHUR_GN,
+                    torch.cuda.max_memory_allocated())
+
+        cfg = SolverConfig(node_capacity=1 << 17, factor_capacity=1 << 17,
+                           gn_iters=SCHUR_GN)
+        mono = BatchSolver(cfg, device="cuda")
+        t = time.perf_counter()
+        mono.solve(g)
+        torch.cuda.synchronize()
+        mono_s = time.perf_counter() - t
+        st_mono = mono.ds.state[:g.nnodes].cpu().numpy()
+        chi2_mono = mono.chi2()
+
+        def chi2_of(states):
+            h = copy.deepcopy(g)
+            h.state[:g.nnodes] = states
+            return h.chi2()
+
+        def diff(a, b):
+            """The largest difference of two state tables in xy and in
+            theta (mod 2pi: an angle near +-pi lands on either side); the
+            largest relative to 1 + |b| entry by entry (numpy's
+            assert_allclose(rtol=t, atol=t) in the form of one number), and
+            in the infinity norm, |a - b| / (1 + |b|)."""
+            d = np.abs(a - b)
+            d[:, 2] = np.abs(np_mod2pi(a[:, 2] - b[:, 2]))
+            return {"xy": float(np.max(d[:, :2])),
+                    "theta": float(np.max(d[:, 2])),
+                    "allclose": float(np.max(d / (1.0 + np.abs(b)))),
+                    "norm": float(np.max(d) / (1.0 + np.max(np.abs(b))))}
+
+        st = {k: v[0] for k, v in runs.items()}
+        rep64 = st["float64", "replicated"]
+        chi2_dd = chi2_of(rep64)
+        modes64 = diff(st["float64", "distributed"], rep64)
+        modes32 = diff(st["float32", "distributed"],
+                       st["float32", "replicated"])
+        err = {
+            "float64_modes": modes64["norm"],
+            "float32_modes": modes32["norm"],
+            "chi2_rel_vs_batch": abs(chi2_dd - chi2_mono) / chi2_mono,
+            "xy_vs_batch": float(np.max(np.abs(rep64[:, :2]
+                                               - st_mono[:, :2])))}
+        print(json.dumps({
+            "phase": "schur", "card": card,
+            "graph": f"manhattan_world({SCHUR_POSES}, seed=0, "
+                     "closure_prob=0.02)",
+            "blocks": SCHUR_BLOCKS, "gn_iters": SCHUR_GN,
+            "ns": part.ns, "ni_max": part.ni_max, "nsl": part.nsl,
+            "generate_s": gen_s, "partition_s": part_s,
+            "ms_per_gn_iter": {f"{d}-{m}": v[1] for (d, m), v in runs.items()},
+            "max_memory_allocated": {f"{d}-{m}": v[2]
+                                     for (d, m), v in runs.items()},
+            "kept_Ls_bytes_float64": SCHUR_BLOCKS * (3 * part.ni_max) ** 2 * 8,
+            "host_batch_s": mono_s, "chi2_initial": g.chi2(),
+            "chi2": {f"{d}-{m}": chi2_of(s) for (d, m), s in st.items()},
+            "chi2_batch": chi2_mono, "errors": err,
+            "xy_theta_modes": {"float64": modes64, "float32": modes32},
+            "xy_theta_float32_vs_float64": diff(st["float32", "replicated"],
+                                                rep64),
+            "tol": SCHUR_TOL}), flush=True)
+        bad = [k for k, v in err.items() if not v <= SCHUR_TOL[k]]
+        if bad or not all(np.all(np.isfinite(v[0])) for v in runs.values()):
+            raise AssertionError(f"schur_solve at {SCHUR_POSES} poses: "
+                                 f"{err} against {SCHUR_TOL}")
+
 
 
 def read_super_golden(path: str = SUPER_GOLDEN):
@@ -769,11 +962,11 @@ def main() -> int:
     rows = check_tri_inv(K, peaks)
     main_row = rows[(32, 384, "float64")]
 
-    # 4-5. the tutorial, then the main path
+    # 4-5. the tutorial, then the main path (which saves a checkpoint)
     run_tutorial()
-    launches, by_shape = run_main_path(K, smi)
-    if launches == 0:
-        raise AssertionError("the main path never launched tri_inv")
+    tmp = tempfile.TemporaryDirectory()
+    ckpt_path = os.path.join(tmp.name, "solver.npz")
+    by_shape, ckpt = run_main_path(K, smi, ckpt_path)
     paths = {"per-step": by_shape}
 
     # 6-7. the throughput replays, then the CLI with --graphpath
@@ -805,7 +998,14 @@ def main() -> int:
         paths[name] = phase(name, run_bundled, K, smi, name, head[name],
                             poses)
 
-    # 11. the kernels line, the card, the result; K1's share of each replay
+    # 11-12. the checkpoint's resumed half, the distributed solves
+    with tmp:
+        paths["checkpoint-resume"] = phase(
+            "checkpoint-resume", run_checkpoint_resume, K, smi, ckpt_path,
+            ckpt)
+    phase("distributed", run_distributed, smi)
+
+    # 13. the kernels line, the card, the result; K1's share of each replay
     # is its launches at each shape times that shape's time from phase 3
     for counts in paths.values():
         for key in counts:

@@ -90,6 +90,9 @@ def test_eval_xytpos():
     evt = tf.eval_xytpos(torch.from_numpy(st), torch.from_numpy(idx),
                          torch.from_numpy(z), torch.from_numpy(W))
     _close(evt.r, evj.r)
+    for port, ref in zip(tf.gn_blocks_xytpos(evt, torch.from_numpy(W)),
+                         jf.gn_blocks_xytpos(evj, jnp.asarray(W))):
+        _close(port, ref)
 
 
 @pytest.mark.parametrize("F,P", [(120, 7), (0, 3), (50, 0)])

@@ -48,7 +48,10 @@ def test_port_has_the_slice_modules():
               "kernels.linalg3", "solver.state", "solver.ingest",
               "solver.batch", "solver.host_batch", "kernels.tri_inv",
               "kernels.assembly", "solver.panel_epoch",
-              "kernels.sweep", "solver.incremental", "replay", "cli"):
+              "kernels.sweep", "solver.incremental", "replay", "cli",
+              "checkpoint", "parallel", "parallel.dist", "parallel.pchol",
+              "parallel.schur", "parallel.dryrun", "examples.tutorial",
+              "examples.graph_save_load", "examples.distributed_solve"):
         assert f"aprilsam_tpu_torch.{m}" in mods, m
     assert os.path.exists(os.path.join(PKG, "csrc", "tri_inv.cu"))
 

@@ -109,27 +109,29 @@ def _quad_form(W, r0, r1, r2):
             + (W[:, 1, 2] + W[:, 2, 1]) * r1 * r2)
 
 
-def graph_chi2(states, xyt_a, xyt_b, xyt_z, xyt_W, pos_idx, pos_z, pos_W):
+def graph_chi2(states, xyt_a, xyt_b, xyt_z, xyt_W, pos_idx, pos_z, pos_W,
+               xyt_mask=None, pos_mask=None):
     """Total graph chi2 at `states` with the reference's 0.5x (xyt) / 1.0x
     (xytpos) convention (april_graph_chi2, april_graph.c:79-98).  The
-    tables are the live factors only: the port slices them to their counts
-    where the JAX package masks padded tables."""
-    total = torch.zeros((), dtype=states.dtype, device=states.device)
-    if xyt_a.shape[0]:
-        pa = states[xyt_a]
-        pb = states[xyt_b]
-        ta = pa[:, 2]
-        ca, sa = torch.cos(ta), torch.sin(ta)
-        dx = pb[:, 0] - pa[:, 0]
-        dy = pb[:, 1] - pa[:, 1]
-        r0 = xyt_z[:, 0] - (ca * dx + sa * dy)
-        r1 = xyt_z[:, 1] - (-sa * dx + ca * dy)
-        r2 = mod2pi(xyt_z[:, 2] - (pb[:, 2] - ta))
-        total = total + 0.5 * torch.sum(_quad_form(xyt_W, r0, r1, r2))
-    if pos_idx.shape[0]:
-        s = states[pos_idx]
-        r0 = pos_z[:, 0] - s[:, 0]
-        r1 = pos_z[:, 1] - s[:, 1]
-        r2 = mod2pi(pos_z[:, 2] - s[:, 2])
-        total = total + torch.sum(_quad_form(pos_W, r0, r1, r2))
-    return total
+    tables are the live factors, or whole tables with the boolean row
+    masks xyt_mask / pos_mask of their live rows (the JAX package's form,
+    which captured code takes: its shapes cannot follow the counts)."""
+    pa = states[xyt_a]
+    pb = states[xyt_b]
+    ta = pa[:, 2]
+    ca, sa = torch.cos(ta), torch.sin(ta)
+    dx = pb[:, 0] - pa[:, 0]
+    dy = pb[:, 1] - pa[:, 1]
+    r0 = xyt_z[:, 0] - (ca * dx + sa * dy)
+    r1 = xyt_z[:, 1] - (-sa * dx + ca * dy)
+    r2 = mod2pi(xyt_z[:, 2] - (pb[:, 2] - ta))
+    qx = _quad_form(xyt_W, r0, r1, r2)
+    s = states[pos_idx]
+    r0 = pos_z[:, 0] - s[:, 0]
+    r1 = pos_z[:, 1] - s[:, 1]
+    r2 = mod2pi(pos_z[:, 2] - s[:, 2])
+    qp = _quad_form(pos_W, r0, r1, r2)
+    if xyt_mask is not None:
+        qx = torch.where(xyt_mask, qx, 0.0)
+        qp = torch.where(pos_mask, qp, 0.0)
+    return 0.5 * torch.sum(qx) + torch.sum(qp)

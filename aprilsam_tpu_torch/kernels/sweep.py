@@ -10,11 +10,13 @@ package's one-hot einsums become index ops here.  Where the JAX package's
 windowed sweep solves each window panel's triangle inside its scan, the
 port inverts the window's triangles in one ``tri_inv`` call before the
 loop: a triangle depends on R only, not on x.
+
+Both sweeps take the active row count n as a 0-d device tensor (or an
+int) and loop over a fixed number of panels, so that their launch sequence
+depends only on (NPANB) or (PW): the form a CUDA graph captures.
 """
 
 from __future__ import annotations
-
-from typing import Sequence
 
 import torch
 
@@ -52,12 +54,12 @@ def _panel_rhs(R_blocks, R_idx, y, xb, p0: int, p1: int) -> torch.Tensor:
     return (y[p0:p1] - acc).reshape(-1)
 
 
-def panel_backsub(R_blocks, R_idx, y, n: int, PANEL: int,
+def panel_backsub(R_blocks, R_idx, y, n, PANEL: int,
                   NPANB: int) -> torch.Tensor:
     """Solve R x = y over the first NPANB*PANEL block rows.
 
     R_blocks [NCAP, BCAP, 3, 3], R_idx [NCAP, BCAP] (sorted, pad NCAP),
-    y [NCAP, 3]; n = active block count.  Returns x [NCAP, 3] in POSITION
+    y [NCAP, 3]; n = active block count (int or 0-d tensor).  Returns x [NCAP, 3] in POSITION
     space (zeros beyond the active panels)."""
     NCAP = R_blocks.shape[0]
     BCAP = R_idx.shape[1]
@@ -85,8 +87,7 @@ def panel_backsub(R_blocks, R_idx, y, n: int, PANEL: int,
     return xb[:NCAP]
 
 
-def panel_backsub_windowed(R_blocks, R_idx, y, x_prev, panels,
-                           live: Sequence[int], n: int,
+def panel_backsub_windowed(R_blocks, R_idx, y, x_prev, panels, n,
                            PANEL: int) -> torch.Tensor:
     """Back-substitution restricted to a WINDOW of panels — the analogue of
     the reference's pruned tree-gated descent (solve_node,
@@ -94,15 +95,15 @@ def panel_backsub_windowed(R_blocks, R_idx, y, x_prev, panels,
     columns landing outside the window read the previous solution x_prev.
 
     `panels` [PW] (int64 tensor) holds DESCENDING panel indices, padded at
-    the end with -1; `live` holds the same indices without the padding, on
-    the host
-    (the loop runs over them).  x_prev [NCAP, 3] is the previous solution
-    in POSITION space.  Because affected sets are ancestor-closed and R-row
-    patterns only reference etree ancestors, the recomputed x is exact for
-    every affected position when the window covers the affected panels;
-    positions outside the window, and inactive rows (>= n) inside it, keep
-    x_prev.  The PW window triangles (identity for padding) are inverted in
-    one ``tri_inv`` call [PW, 3P, 3P].  Returns x [NCAP, 3]."""
+    the end with -1; the loop runs over all PW slots, and a padding slot
+    writes nowhere.  x_prev [NCAP, 3] is the previous solution in POSITION
+    space; n (int or 0-d tensor) is the active row count.  Because affected
+    sets are ancestor-closed and R-row patterns only reference etree
+    ancestors, the recomputed x is exact for every affected position when
+    the window covers the affected panels; positions outside the window,
+    and inactive rows (>= n) inside it, keep x_prev.  The PW window
+    triangles (identity for padding) are inverted in one ``tri_inv`` call
+    [PW, 3P, 3P].  Returns x [NCAP, 3]."""
     NCAP = R_blocks.shape[0]
     PW = panels.shape[0]
     dtype, dev = R_blocks.dtype, R_blocks.device
@@ -111,18 +112,22 @@ def panel_backsub_windowed(R_blocks, R_idx, y, x_prev, panels,
     p0s = panels.clamp(min=0) * PANEL
     prow = p0s[:, None] + torch.arange(PANEL, device=dev)          # [PW, P]
     keep = (~pad).to(dtype).view(PW, 1, 1, 1, 1)
-    inactive = ((prow >= n) | pad[:, None]).repeat_interleave(3, dim=1)
+    dead = (prow >= n) | pad[:, None]                             # [PW, P]
+    inactive = dead.repeat_interleave(3, dim=1)
     Td = _panel_triangles(R_blocks[prow] * keep, R_idx[prow],
                           p0s.view(PW, 1, 1), inactive)
     Tinv = tri_inv(Td.contiguous())
 
-    xb = torch.cat([x_prev, torch.zeros(1, 3, dtype=dtype, device=dev)])
-    for i, j in enumerate(live):
-        p0 = int(j) * PANEL
-        p1 = p0 + PANEL
-        n_act = min(max(n - p0, 0), PANEL)      # active rows: a prefix
-        rhs = _panel_rhs(R_blocks, R_idx, y, xb, p0, p1)
+    # row NCAP is the zero the pattern padding reads; NCAP + 1 takes the
+    # writes of inactive rows and padding slots
+    xb = torch.cat([x_prev, torch.zeros(2, 3, dtype=dtype, device=dev)])
+    dest = torch.where(dead, NCAP + 1, prow)
+    for i in range(PW):
+        rows = R_blocks[prow[i]]
+        idx = R_idx[prow[i]]
+        beyond = idx >= (p0s[i] + PANEL)
+        xg = torch.where(beyond[..., None], xb[idx.clamp(0, NCAP)], 0.0)
+        rhs = (y[prow[i]] - torch.einsum("pbij,pbj->pi", rows, xg)).reshape(-1)
         rhs = torch.where(inactive[i], 0.0, rhs)
-        xp = (Tinv[i] @ rhs).reshape(PANEL, 3)
-        xb[p0:p0 + n_act] = xp[:n_act]
+        xb[dest[i]] = (Tinv[i] @ rhs).reshape(PANEL, 3)
     return xb[:NCAP]

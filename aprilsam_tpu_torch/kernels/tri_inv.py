@@ -13,7 +13,13 @@ entry points, pointers and the stream as ``c_void_p``).
 for a tensor that lies on the CPU.  There is no fallback: on a CUDA tensor
 it launches the kernel or raises.  ``launches`` counts calls that launched
 the kernel (one call is two CUDA launches); ``launches_by_shape`` splits
-that count by (B, N, dtype).
+that count by (B, N, dtype).  A call made while a CUDA graph is being
+captured launches nothing: it is recorded in the capture's record
+(``capture_record``), and each replay of that graph adds the record to the
+counts (``count_replay``), so a replayed step counts as its eager run does.
+The kernel sets its function attributes on its first launch on a device
+(``device_info`` in the source), which must not happen inside a capture:
+the graph cache runs each signature eagerly before capturing it.
 
 ``schedule`` and ``run_schedule`` restate the kernel's tiling, block order
 and chunk stream in Python, with torch tile products; the tests hold them
@@ -27,7 +33,7 @@ import os
 import shutil
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,6 +48,8 @@ TILE = 48                  # diagonal tile (BLK of pallas_tri.py)
 
 launches = 0        # calls that launched the kernel since reset_launches()
 launches_by_shape: Dict[Tuple[int, int, str], int] = {}
+# the launches the capture in progress records, by shape (None: no capture)
+capture_record: Optional[Dict[Tuple[int, int, str], int]] = None
 
 _lock = threading.Lock()
 _lib = None
@@ -92,6 +100,15 @@ def reset_launches() -> None:
     launches_by_shape.clear()
 
 
+def count_replay(record: Dict[Tuple[int, int, str], int]) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    `record`."""
+    global launches
+    for key, c in record.items():
+        launches += c
+        launches_by_shape[key] = launches_by_shape.get(key, 0) + c
+
+
 def tri_inv_plain(T: torch.Tensor) -> torch.Tensor:
     """X[b] = T[b]^-1 by a triangular solve against the identity — the
     function the JAX package's default ``tri_inv`` computes."""
@@ -102,7 +119,6 @@ def tri_inv_plain(T: torch.Tensor) -> torch.Tensor:
 def tri_inv(T: torch.Tensor) -> torch.Tensor:
     """Inverse of every upper-triangular T[b] in T [B, N, N] (entries below
     the diagonal are ignored; X is zero there)."""
-    global launches
     if T.device.type == "cpu":
         return tri_inv_plain(T)
     if T.device.type != "cuda":
@@ -128,9 +144,14 @@ def tri_inv(T: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"tri_inv kernel launch failed: CUDA error {rc} "
                            f"at shape {tuple(T.shape)}, {T.dtype}")
-    launches += 1
     key = (B, N, str(T.dtype).replace("torch.", ""))
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    if torch.cuda.is_current_stream_capturing():
+        if capture_record is None:
+            raise RuntimeError("tri_inv captured outside the graph cache: "
+                               "its launches would not be counted")
+        capture_record[key] = capture_record.get(key, 0) + 1
+    else:
+        count_replay({key: 1})
     return X
 
 

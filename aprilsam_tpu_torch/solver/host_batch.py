@@ -4,70 +4,159 @@ Counterpart of ``aprilsam_tpu/solver/host_batch.py``: the whole epoch runs
 in native float64 on the host (native/sam_native.c) — exactly the
 reference's one-Gauss-Newton-step batch (april_graph_cholesky,
 aprilsam.c:87-375) — and the resulting block-sparse R, y and states are
-written into the device state in place.
+written into the device state in place, by one upload and one expansion at
+the JAX package's signature (NC, MAXZ): the rows bucketed by 1024, the row
+width by expand_maxz.  On the card the expansion replays as one CUDA graph
+per signature (utils/cache.py); precompile_expand walks the ladder.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from .. import native
 from ..graph import FACTOR_XYT
+from ..utils import GraphCache
 from .batch import BatchInfo
 from .config import SolverConfig
-from .state import DeviceState
+from .state import DeviceState, full
 from .symbolic import SymbolicState
 
 
-def _expand_batch_state(ds: DeviceState, blocks, idx, nnz, y, st, lp, dx,
-                        pos, order, chi2_val: float,
-                        log_mode: int) -> DeviceState:
-    """Write the post-epoch solver state of the first n = len(nnz) nodes
-    into the device tensors, in place.
+def _bucket_up(n: int, step: int, cap: int) -> int:
+    return min(cap, max(step, ((n + step - 1) // step) * step))
+
+
+def expand_maxz(maxnnz: int, BCAP: int) -> int:
+    """The R-row width of the epoch's upload: 48 or 96 where they fit
+    (few signatures; M3500's final epoch has 48), else BCAP."""
+    for b in (48, 96):
+        if maxnnz <= b <= BCAP:
+            return b
+    return BCAP
+
+
+def _expand_body(ds: DeviceState, P: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Write the post-epoch solver state of the first n = P["ctl"][0]
+    nodes, uploaded as [NC, MAXZ] rows, into the device tensors, in place.
 
     R and y are cleared beyond row n; states of rows beyond n keep their
     values, and the position map is the identity there (nodes appended
-    between epochs take position == node id, aprilsam.c:392-397).  log_mode:
-    0 = append chi2 to the metric ring, 1 = overwrite the newest entry (a
-    fallback epoch replaces the chi2 of the step that triggered it), 2 =
-    leave the ring alone."""
+    between epochs take position == node id, aprilsam.c:392-397).  The
+    chi2 goes to the metric-ring row P["ctl"][1].  With n = 0 (a dead
+    payload) nothing changes."""
     NCAP = ds.R_idx.shape[0]
-    n = len(nnz)
-    dev, dt = ds.device, ds.R_blocks.dtype
-    t = lambda a, d=dt: torch.as_tensor(np.ascontiguousarray(a), device=dev,
-                                        dtype=d)
-    ds.R_blocks.zero_()
-    ds.R_blocks[:n] = t(blocks)
-    ds.R_idx[:n] = t(idx, torch.int64)
-    ds.R_idx[n:] = NCAP
-    ds.R_nnz.zero_()
-    ds.R_nnz[:n] = t(nnz, torch.int64)
-    ds.y.zero_()
-    ds.y[:n] = t(y)
-    ds.state[:n] = t(st)
-    ds.l_point[:n] = t(lp)
-    ds.delta_X[:n] = t(dx)
-    ar = torch.arange(NCAP, dtype=torch.int64, device=dev)
-    ds.pos.copy_(ar)
-    ds.pos[:n] = t(pos, torch.int64)
-    ds.order.copy_(ar)
-    ds.order[:n] = t(order, torch.int64)
-    ds.relinearized.zero_()
-    ds.start_over.zero_()
-    ds.spd_ok.fill_(True)
+    ctl = P["ctl"]
+    NC, MAXZ = P["idx"].shape
+    live = ctl[0] > 0
+    rows = (torch.arange(NC, device=ds.device) < ctl[0])[:, None]
 
+    for t, fill in ((ds.R_blocks, 0.0), (ds.R_idx, NCAP), (ds.R_nnz, 0),
+                    (ds.y, 0.0)):
+        t.masked_fill_(live, fill)
+    for head, src in ((ds.R_blocks[:NC, :MAXZ], P["blocks"]),
+                      (ds.R_idx[:NC, :MAXZ], P["idx"]),
+                      (ds.R_nnz[:NC], P["nnz"]), (ds.y[:NC], P["y"])):
+        head.copy_(torch.where(live, src, head))
+    for name, src in (("state", P["st"]), ("l_point", P["lp"]),
+                      ("delta_X", P["dx"])):
+        head = getattr(ds, name)[:NC]
+        head.copy_(torch.where(rows, src, head))
+    ar = torch.arange(NCAP, dtype=torch.int64, device=ds.device)
+    for name in ("pos", "order"):
+        new = ar.clone()
+        new[:NC] = P[name]
+        t = getattr(ds, name)
+        t.copy_(torch.where(live, new, t))
+    ds.relinearized.masked_fill_(live, False)
+    ds.start_over.masked_fill_(live, 0)
+    ds.spd_ok.masked_fill_(live, True)
+    full(ds.chi2_log).index_copy_(0, ctl[1:2], P["chi2"])
+    return P["chi2"]
+
+
+def expand_inputs(ds: DeviceState, cfg: SolverConfig, n: int, blocks, idx,
+                  nnz, y, st, lp, dx, pos, order, chi2_val: float,
+                  log_mode: int, NC: int = None, MAXZ: int = None):
+    """The epoch's result for nodes [0, n) padded to (NC, MAXZ) (by
+    default the buckets of n and of the widest row); returns (ints,
+    floats, ring pointer after).  log_mode: 0 = append chi2 to the metric
+    ring, 1 = overwrite the newest entry (a fallback epoch replaces the
+    chi2 of the step that triggered it), 2 = leave the ring alone."""
+    NCAP, BCAP = cfg.node_capacity, cfg.row_block_capacity
+    NC = NC or _bucket_up(n, 1024, NCAP)
+    MAXZ = MAXZ or expand_maxz(int(np.max(nnz, initial=1)), BCAP)
     LOG = ds.chi2_log.shape[0]
+    ptr = ds.log_ptr
+    log_idx, ptr_after = LOG, ptr
     if log_mode == 0:
-        if ds.log_ptr < LOG:
-            ds.chi2_log[ds.log_ptr] = chi2_val
-        ds.log_ptr += 1
-    elif log_mode == 1:
-        if 1 <= ds.log_ptr <= LOG:
-            ds.chi2_log[ds.log_ptr - 1] = chi2_val
-    return ds
+        log_idx, ptr_after = (ptr if ptr < LOG else LOG), ptr + 1
+    elif log_mode == 1 and 1 <= ptr <= LOG:
+        log_idx = ptr - 1
+
+    def pad(a, fill, dtype, width=None):
+        a = np.asarray(a)
+        shape = (NC,) + ((width,) if width else ()) + a.shape[2 if width
+                                                             else 1:]
+        out = np.full(shape, fill, dtype=dtype)
+        if width:
+            out[:n] = a[:, :width]
+        else:
+            out[:n] = a
+        return out
+
+    ar = np.arange(NC, dtype=np.int64)
+    pos_c, order_c = ar.copy(), ar.copy()
+    pos_c[:n], order_c[:n] = pos, order
+    ints = dict(ctl=np.asarray([n, log_idx], dtype=np.int64),
+                idx=pad(idx, NCAP, np.int64, MAXZ),
+                nnz=pad(nnz, 0, np.int64), pos=pos_c, order=order_c)
+    floats = dict(blocks=pad(blocks, 0.0, np.float64, MAXZ),
+                  y=pad(y, 0.0, np.float64), st=pad(st, 0.0, np.float64),
+                  lp=pad(lp, 0.0, np.float64), dx=pad(dx, 0.0, np.float64),
+                  chi2=np.asarray([chi2_val], dtype=np.float64))
+    return ints, floats, ptr_after
+
+
+def expand(ds: DeviceState, ints, floats, graphs: GraphCache) -> None:
+    NC, MAXZ = ints["idx"].shape
+    graphs.run(("expand", NC, MAXZ), ds, ints, floats,
+               lambda P: _expand_body(ds, P))
+
+
+def precompile_expand(ds: DeviceState, cfg: SolverConfig, nnodes_max: int,
+                      graphs: GraphCache) -> int:
+    """Drive every (NC, MAXZ) expansion signature a replay of nnodes_max
+    poses can hit with dead payloads (n = 0), as the JAX package compiles
+    them: on the card each one's graph is captured into `graphs` on `ds`, which the dead payloads leave as it was.  (The JAX
+    package's log_mode axis is an input here, not a signature.)  Returns
+    the number of signatures."""
+    NCAP = cfg.node_capacity
+    BCAP = cfg.row_block_capacity
+    nc_top = _bucket_up(nnodes_max or NCAP, 1024, NCAP)
+    ncs = []
+    nc = 1024
+    while True:
+        ncs.append(min(nc, NCAP))
+        if nc >= nc_top:
+            break
+        nc += 1024
+    count = 0
+    z = np.zeros(0, dtype=np.int64)
+    for NC in dict.fromkeys(ncs):
+        for MAXZ in sorted({expand_maxz(1, BCAP), expand_maxz(49, BCAP)}):
+            f3 = np.zeros((0, 3))
+            ints, floats, _p = expand_inputs(
+                ds, cfg, 0, np.zeros((0, MAXZ, 3, 3)), np.zeros((0, MAXZ)),
+                z, f3, f3, f3, f3, z, z, 0.0, 2, NC=NC, MAXZ=MAXZ)
+            expand(ds, ints, floats, graphs)
+            count += 1
+    if ds.device.type == "cuda":
+        torch.cuda.synchronize(ds.device)
+    return count
 
 
 def _adjacency_csr(nnodes: int, ftypes, fnodes) -> Tuple[np.ndarray, np.ndarray]:
@@ -104,6 +193,8 @@ def host_batch_epoch(
     fz: np.ndarray,
     fW: np.ndarray,
     log_mode: int = 0,
+    *,
+    graphs: GraphCache,
 ) -> Tuple[DeviceState, SymbolicState, BatchInfo]:
     NCAP = cfg.node_capacity
     BCAP = cfg.row_block_capacity
@@ -142,7 +233,9 @@ def host_batch_epoch(
     # consistent with them.
     idx = patterns.astype(np.int64)
     idx[idx >= nnodes] = NCAP
-    ds = _expand_batch_state(ds, blocks, idx, nnz, y.reshape(nnodes, 3),
-                             new_states, states, delta, pos, order, chi2,
-                             log_mode=log_mode)
+    ints, floats, ptr_after = expand_inputs(
+        ds, cfg, nnodes, blocks, idx, nnz, y.reshape(nnodes, 3), new_states,
+        states, delta, pos, order, chi2, log_mode)
+    expand(ds, ints, floats, graphs)
+    ds.log_ptr = ptr_after
     return ds, sym, BatchInfo(chi2=chi2, spd=spd, n=nnodes)

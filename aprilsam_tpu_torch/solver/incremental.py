@@ -31,17 +31,30 @@ Throughput modes (as in the JAX package):
     bundle's full steps share one whole-graph sweep at its end;
   * the policy's wall-clock gate then reads dispatch-to-dispatch intervals.
 
+Signatures and CUDA graphs (the JAX package's static shapes and jit
+executables): every dispatch is padded to its signature, as in the JAX
+package, with dead slots writing to the state's dump rows (state.py):
+  ("fast", M), ("full", M, NPANB)   a step at affected-set bucket M;
+  ("sup", M, NPANB), ("supns", M), ("win", M, PW)
+                                    a superstep (swept, unswept, windowed);
+  ("sweep", NPANB)                  flush()'s or a bundle's lone sweep;
+  ("ingest", knode, kseed, K)       the plan-overflow path's ingestion.
+On the card each signature runs as a CUDA graph captured on its first
+dispatch (or by precompile) and replayed after (utils/cache.py); K1 is
+replayed inside the full-step, superstep and sweep graphs.  graphs=False
+runs every dispatch eagerly (for timing the two against each other); on
+the CPU every dispatch runs eagerly.  default_signatures and precompile
+are the JAX package's.
+
 How the port differs from the JAX package, with the algebra unchanged:
-  * the host plan (StepPlan) carries numpy arrays; each dispatch uploads
-    them in one copy per dtype (pinned, asynchronous on the card); there is
-    no packed int32 plan vector and no front gather/scatter tables;
-  * tensors are sized to the step (m affected rows, the step's factors)
-    instead of padded to static buckets, and the JAX package's one-hot
-    einsums are index ops; the frontal buckets survive only as the
-    affected-set limit that sends a step to the batch fallback;
+  * the host plan (StepPlan) carries numpy arrays, padded to the signature
+    as each dispatch uploads them, in one copy per dtype (pinned,
+    asynchronous on the card); there is no packed int32 plan vector and no
+    front gather/scatter tables;
+  * the JAX package's one-hot einsums are index ops;
   * the solver state is updated in place;
-  * a bundle is a Python loop over its live slots inside one dispatch call
-    (no host read between slots), where the JAX package scans over a
+  * a bundle of k live slots is k replays of its slots' single-step
+    graphs (no host read between them), where the JAX package scans over a
     padded, packed slot array.
 """
 
@@ -62,13 +75,13 @@ from ..graph import FactorGraph, FACTOR_XYT
 from ..factors import eval_xyt, eval_xytpos
 from ..kernels.linalg3 import chol3, solve_upper3
 from ..kernels.sweep import panel_backsub, panel_backsub_windowed
-from ..utils import resolve_device, setup_precision
+from ..utils import GraphCache, resolve_device, setup_precision
 from ..utils.timeprofile import TimeProfile
 from .batch import BatchInfo, PanelFallbackError, run_batch_epoch
 from .config import SolverConfig
 from .ingest import ingest_graph
-from .state import (DeviceState, init_device_state, state_chi2,
-                    state_from_numpy, state_to_numpy, upload)
+from .state import (DeviceState, full, init_device_state, state_chi2,
+                    state_from_numpy, state_to_numpy, with_dump_row)
 from . import symbolic as sym_mod
 from .symbolic import SymbolicState
 
@@ -389,144 +402,225 @@ def plan_step(
 # ======================================================================
 # device step
 # ======================================================================
+#
+# A dispatch runs on tensors padded to its signature, as in the JAX
+# package: M = plan.maxaff front slots, K new factors of each type, knode
+# new nodes, kseed seeds and MIXED_FR fringe slots.  Dead slots read
+# harmless rows and write to the dump rows of the state's tables
+# (state.py); a dead front slot gets identity on R_F's diagonal and zero y
+# (the JAX package's incremental.py:750), so the QR leaves +1 on its
+# diagonal.  P["ctl"] holds the counts the body reads:
+#   [m, kx, kp, nfr, nnodes, n_xyt, n_pos, log_idx]
+# the step's live front rows, new xyt and xytpos factors and fringe rows;
+# the node and factor counts after the step; and the metric-ring row its
+# chi2 goes to (the ring's dump row when it is not logged).  A dead
+# dispatch (precompile) has zeros there and changes nothing.  So the
+# launch sequence of a body depends on its signature only, which is what
+# a CUDA graph captures (utils/cache.py); the host counts of DeviceState
+# advance outside the bodies (advance_counts).
 
-def tail_tensors(ds: DeviceState, tail: StepTail,
-                 **ints: np.ndarray) -> Dict[str, torch.Tensor]:
-    """Upload a step tail (and any further index arrays) for
-    inc_ingest_tail."""
-    ints = dict(node_ids=tail.node_ids, seed_src=tail.seed_src,
-                seed_dst=tail.seed_dst, seed_inv=tail.seed_inv,
-                nf_a=tail.nf_a, nf_b=tail.nf_b, np_node=tail.np_node,
-                **ints)
-    floats = dict(node_states=tail.node_states, seed_z=tail.seed_z,
-                  nf_z=tail.nf_z, nf_W=tail.nf_W, np_z=tail.np_z,
-                  np_W=tail.np_W)
-    return upload(ds, ints, floats)
-
-
-def plan_tensors(ds: DeviceState, plan: StepPlan,
-                 **ints: np.ndarray) -> Dict[str, torch.Tensor]:
-    """Upload a step plan (and any further index arrays) for the step
-    bodies."""
-    return tail_tensors(
-        ds, plan.tail, F_pos=plan.F_pos, F_node=plan.F_node,
-        new_ridx=plan.new_ridx, new_nnz=plan.new_nnz,
-        nf_a_slot=plan.nf_a_slot, nf_b_slot=plan.nf_b_slot,
-        np_slot=plan.np_slot, fringe_pos=plan.fringe_pos,
-        fringe_node=plan.fringe_node, **ints)
+def _pad(a, n: int, fill, dtype=np.int64) -> np.ndarray:
+    a = np.asarray(a)
+    out = np.full((n,) + a.shape[1:], fill, dtype=dtype)
+    out[:len(a)] = a
+    return out
 
 
-def inc_ingest_tail(ds: DeviceState, tail: StepTail,
-                    P: Dict[str, torch.Tensor]) -> DeviceState:
+def tail_inputs(ds: DeviceState, tail: StepTail, K: int, knode: int,
+                kseed: int) -> Tuple[Dict[str, np.ndarray],
+                                     Dict[str, np.ndarray]]:
+    """A step tail padded to (knode, kseed, K): the ingestion arrays of a
+    dispatch (ints, floats), with the table rows its factors append to."""
+    NCAP = ds.state.shape[0]
+    FCAP, FPOS = ds.xyt_a.shape[0], ds.pos_node.shape[0]
+    kx, kp = len(tail.nf_a), len(tail.np_node)
+    if ds.n_xyt + kx > FCAP:
+        raise OverflowError("xyt factor capacity exceeded")
+    if ds.n_pos + kp > FPOS:
+        raise OverflowError("xytpos factor capacity exceeded")
+    f64 = np.float64
+    ints = dict(
+        node_ids=_pad(tail.node_ids, knode, NCAP),
+        seed_src=_pad(tail.seed_src, kseed, 0),
+        seed_dst=_pad(tail.seed_dst, kseed, NCAP),
+        seed_inv=_pad(tail.seed_inv, kseed, 0),
+        nf_a=_pad(tail.nf_a, K, 0), nf_b=_pad(tail.nf_b, K, 0),
+        nf_row=_pad(np.arange(ds.n_xyt, ds.n_xyt + kx), K, FCAP),
+        np_node=_pad(tail.np_node, K, 0),
+        np_row=_pad(np.arange(ds.n_pos, ds.n_pos + kp), K, FPOS))
+    floats = dict(
+        node_states=_pad(tail.node_states, knode, 0.0, f64),
+        seed_z=_pad(tail.seed_z, kseed, 0.0, f64),
+        nf_z=_pad(tail.nf_z, K, 0.0, f64), nf_W=_pad(tail.nf_W, K, 0.0, f64),
+        np_z=_pad(tail.np_z, K, 0.0, f64), np_W=_pad(tail.np_W, K, 0.0, f64))
+    return ints, floats
+
+
+def step_inputs(ds: DeviceState, plan: StepPlan, K: int, knode: int,
+                kseed: int, log_chi2: bool, **extra: np.ndarray):
+    """The arrays of one step dispatch padded to its signature (front
+    slots plan.maxaff, K, knode, kseed, MIXED_FR fringe slots), with
+    P["ctl"]; `extra` adds further index arrays.  Returns (ints,
+    floats)."""
+    NCAP = ds.state.shape[0]
+    M = plan.maxaff
+    ints, floats = tail_inputs(ds, plan.tail, K, knode, kseed)
+    t = plan.tail
+    LOG = ds.chi2_log.shape[0]
+    if plan.m > 0:
+        kx, kp = len(t.nf_a), len(t.np_node)
+        log_idx = ds.log_ptr if log_chi2 and ds.log_ptr < LOG else LOG
+        ctl = [plan.m, kx, kp, len(plan.fringe_pos),
+               ds.nnodes + len(t.node_ids), ds.n_xyt + kx, ds.n_pos + kp,
+               log_idx]
+    else:
+        ctl = [0] * 7 + [LOG]
+    ints.update(
+        ctl=np.asarray(ctl, dtype=np.int64),
+        F_pos=_pad(plan.F_pos, M, NCAP), F_node=_pad(plan.F_node, M, NCAP),
+        new_ridx=_pad(plan.new_ridx, M, NCAP),
+        new_nnz=_pad(plan.new_nnz, M, 0),
+        nf_a_slot=_pad(plan.nf_a_slot, K, M),
+        nf_b_slot=_pad(plan.nf_b_slot, K, M),
+        np_slot=_pad(plan.np_slot, K, M),
+        fringe_pos=_pad(plan.fringe_pos, MIXED_FR, NCAP),
+        fringe_node=_pad(plan.fringe_node, MIXED_FR, NCAP), **extra)
+    return ints, floats
+
+
+def advance_counts(ds: DeviceState, tail: StepTail, logged: bool) -> None:
+    """The host counts after a dispatch of `tail` (logged: it wrote one
+    metric-ring entry)."""
+    ds.nnodes += len(tail.node_ids)
+    ds.n_xyt += len(tail.nf_a)
+    ds.n_pos += len(tail.np_node)
+    ds.log_ptr += int(logged)
+
+
+def empty_tail() -> StepTail:
+    z = np.zeros(0, dtype=np.int64)
+    f3, f33 = np.zeros((0, 3)), np.zeros((0, 3, 3))
+    return StepTail(node_ids=z, node_states=f3, seed_src=z, seed_dst=z,
+                    seed_inv=np.zeros(0, dtype=bool), seed_z=f3, nf_a=z,
+                    nf_b=z, nf_z=f3, nf_W=f33, np_node=z, np_z=f3, np_W=f33)
+
+
+def dead_plan(M: int, BCAP: int) -> StepPlan:
+    """A plan with no live slot at bucket M (precompile's input): its
+    dispatch leaves the solver state as it was."""
+    z = np.zeros(0, dtype=np.int64)
+    return StepPlan(m=0, naffected=0, maxaff=M, max_rnnz=0,
+                    fringe_overflow=False, tail=empty_tail(), F_pos=z,
+                    F_node=z, new_ridx=np.zeros((0, BCAP), dtype=np.int64),
+                    new_nnz=z, nf_a_slot=z, nf_b_slot=z, np_slot=z,
+                    fringe_pos=z, fringe_node=z)
+
+
+def inc_ingest_tail(ds: DeviceState,
+                    P: Dict[str, torch.Tensor]) -> torch.Tensor:
     """New nodes + odometry seeding + factor-table appends, in place (the
     first part of every step, and the whole of the plan-overflow path).
-    P holds the tail's tensors (tail_tensors)."""
-    k = len(tail.node_ids)
-    if k:
-        ids, st = P["node_ids"], P["node_states"]
-        ds.state[ids] = st
-        ds.l_point[ids] = st
-        # index_fill_ takes the scalar on the host; an indexed assignment
-        # of 0.0 would copy it to the card and wait for the copy
-        ds.delta_X.index_fill_(0, ids, 0.0)
-        ds.nnodes += k
-    if len(tail.seed_dst):
-        # dst = src (+) z, or src (+) inv(z) (aprilsam_demo.c:180-191)
-        z = P["seed_z"]
-        z_eff = torch.where(P["seed_inv"][:, None] != 0, xyt_inv(z), z)
-        seeded = xyt_mul(ds.state[P["seed_src"]], z_eff)
-        ds.state[P["seed_dst"]] = seeded
-        ds.l_point[P["seed_dst"]] = seeded
-    kx = len(tail.nf_a)
-    if kx:
-        n0 = ds.n_xyt
-        if n0 + kx > ds.xyt_a.shape[0]:
-            raise OverflowError("xyt factor capacity exceeded")
-        sl = slice(n0, n0 + kx)
-        ds.xyt_a[sl] = P["nf_a"]
-        ds.xyt_b[sl] = P["nf_b"]
-        ds.xyt_z[sl] = P["nf_z"]
-        ds.xyt_W[sl] = P["nf_W"]
-        ds.n_xyt = n0 + kx
-    kp = len(tail.np_node)
-    if kp:
-        n0 = ds.n_pos
-        if n0 + kp > ds.pos_node.shape[0]:
-            raise OverflowError("xytpos factor capacity exceeded")
-        sl = slice(n0, n0 + kp)
-        ds.pos_node[sl] = P["np_node"]
-        ds.pos_z[sl] = P["np_z"]
-        ds.pos_W[sl] = P["np_W"]
-        ds.n_pos = n0 + kp
-    return ds
+    P holds a padded tail (tail_inputs).  Returns a placeholder stats
+    vector."""
+    state, l_point = full(ds.state), full(ds.l_point)
+    ids, st = P["node_ids"], P["node_states"]
+    state[ids] = st
+    l_point[ids] = st
+    # index_fill_ takes the scalar on the host; an indexed assignment
+    # of 0.0 would copy it to the card and wait for the copy
+    full(ds.delta_X).index_fill_(0, ids, 0.0)
+    # dst = src (+) z, or src (+) inv(z) (aprilsam_demo.c:180-191)
+    z = P["seed_z"]
+    z_eff = torch.where(P["seed_inv"][:, None] != 0, xyt_inv(z), z)
+    seeded = xyt_mul(state[P["seed_src"]], z_eff)
+    state[P["seed_dst"]] = seeded
+    l_point[P["seed_dst"]] = seeded
+    rows = P["nf_row"]
+    full(ds.xyt_a)[rows] = P["nf_a"]
+    full(ds.xyt_b)[rows] = P["nf_b"]
+    full(ds.xyt_z)[rows] = P["nf_z"]
+    full(ds.xyt_W)[rows] = P["nf_W"]
+    rows = P["np_row"]
+    full(ds.pos_node)[rows] = P["np_node"]
+    full(ds.pos_z)[rows] = P["np_z"]
+    full(ds.pos_W)[rows] = P["np_W"]
+    return torch.zeros(1, dtype=ds.chi2_log.dtype, device=ds.device)
 
 
-def _psd_ok(Wh, W):
+def _psd_ok(Wh, W, valid):
     """The QR update is a Cholesky UPdate: an indefinite W cannot be
     represented (the reference NaNs on it, smatd.c:669-699, and ignores its
-    own is_spd flag — this escalates to a batch instead)."""
-    if W.shape[0] == 0:
-        return torch.ones((), dtype=torch.bool, device=W.device)
+    own is_spd flag — this escalates to a batch instead).  Rows where
+    `valid` is False pass."""
     Wsym = torch.triu(W) + torch.triu(W, 1).transpose(1, 2)
     err = torch.abs(torch.einsum("fki,fkj->fij", Wh, Wh) - Wsym)
     scale = 1e-3 * (1.0 + torch.abs(Wsym).amax(dim=(1, 2)))
-    return torch.all(err.amax(dim=(1, 2)) <= scale)
+    return torch.all(torch.where(valid, err.amax(dim=(1, 2)) <= scale, True))
 
 
-def _measurement_rows(Wh, J_slots, m: int, dtype, device):
+def _measurement_rows(Wh, J_slots, M: int):
     """Stack W^{1/2} J for factors whose Jacobian blocks land at front
-    slots: J_slots is a list of (slot [F], block [F, 3, 3]).  Returns
-    [3F, 3m]."""
+    slots: J_slots is a list of (slot [F], block [F, 3, 3]); slot M is a
+    dump column (dead factors).  Returns [3F, 3M]."""
     F = Wh.shape[0]
-    rows = torch.zeros(F, m, 3, 3, dtype=dtype, device=device)
-    ar = torch.arange(F, device=device)
+    rows = torch.zeros(F, M + 1, 9, dtype=Wh.dtype, device=Wh.device)
     for slot, blk in J_slots:
-        rows.index_put_((ar, slot), blk, accumulate=True)
-    return rows.permute(0, 2, 1, 3).reshape(3 * F, 3 * m)
+        rows.scatter_add_(1, slot.view(F, 1, 1).expand(F, 1, 9),
+                          blk.reshape(F, 1, 9))
+    rows = rows[:, :M].reshape(F, M, 3, 3)
+    return rows.permute(0, 2, 1, 3).reshape(3 * F, 3 * M)
 
 
-def _frontal_core(ds: DeviceState, plan: StepPlan,
-                  P: Dict[str, torch.Tensor]):
+def _frontal_core(ds: DeviceState, P: Dict[str, torch.Tensor], M: int):
     """Ingest the step, then the dense frontal QR update of the affected
-    rows; writes R' and y' back on the new pattern.  P holds the plan's
-    tensors (plan_tensors).  Returns (R_up [3m, 3m], y_new [3m], spd (0-d
-    bool), pos2f, F_pos)."""
+    rows; writes R' and y' back on the new pattern.  P holds the padded
+    plan (step_inputs).  Returns (R_up [3M, 3M], y_new [3M], spd (0-d
+    bool), pos2f, row_valid [M])."""
     NCAP = ds.state.shape[0]
     dtype, dev = ds.R_blocks.dtype, ds.device
-    m = plan.m
-    K3 = 3 * m
-    inc_ingest_tail(ds, plan.tail, P)
+    K3 = 3 * M
+    inc_ingest_tail(ds, P)
+    ctl = P["ctl"]
+    R_blocks, R_idx, y = full(ds.R_blocks), full(ds.R_idx), full(ds.y)
 
     # ---------------- frontal gather: RF[r, c] = R block of row F[r] at
-    # column F[c]; pos2f maps a position to its front slot (else -1)
+    # column F[c]; pos2f maps a position to its front slot (else -1).  Dead
+    # slots (F_pos = NCAP) map at NCAP + 1: the pattern padding NCAP stays
+    # -1.
     F_pos = P["F_pos"]
-    ar_m = torch.arange(m, device=dev)
-    pos2f = torch.full((NCAP + 1,), -1, dtype=torch.int64, device=dev)
-    pos2f[F_pos] = ar_m
-    rows = ds.R_blocks[F_pos]                                # [m, BCAP, 3, 3]
-    gather_fc = pos2f[ds.R_idx[F_pos].clamp(0, NCAP)]       # [m, BCAP]
-    RF = torch.zeros(m, m + 1, 3, 3, dtype=dtype, device=dev)
-    RF[ar_m[:, None], torch.where(gather_fc >= 0, gather_fc, m)] = rows
-    R_dense = RF[:, :m].permute(0, 2, 1, 3).reshape(K3, K3)
-    y_F = ds.y[F_pos].reshape(K3)
+    ar = torch.arange(M, device=dev)
+    row_valid = ar < ctl[0]
+    live3 = row_valid.repeat_interleave(3)
+    pos2f = torch.full((NCAP + 2,), -1, dtype=torch.int64, device=dev)
+    pos2f[F_pos + (~row_valid)] = ar
+    rows = torch.where(row_valid[:, None, None, None], R_blocks[F_pos], 0.0)
+    gather_fc = pos2f[R_idx[F_pos].clamp(0, NCAP)]           # [M, BCAP]
+    RF = torch.zeros(M, M + 1, 3, 3, dtype=dtype, device=dev)
+    RF[ar[:, None], torch.where(gather_fc >= 0, gather_fc, M)] = rows
+    R_dense = RF[:, :M].permute(0, 2, 1, 3).reshape(K3, K3)
+    R_dense = R_dense + torch.diag((~live3).to(dtype))
+    y_F = torch.where(row_valid[:, None], y[F_pos], 0.0).reshape(K3)
 
     # ---------------- stacked square-root measurement rows
     # (aprilsam.c:508-542 as a QR factor update)
+    K = P["nf_a"].shape[0]
+    xv = torch.arange(K, device=dev) < ctl[1]
+    pv = torch.arange(K, device=dev) < ctl[2]
     nf_W, np_W = P["nf_W"], P["np_W"]
     ev = eval_xyt(ds.l_point, P["nf_a"], P["nf_b"], P["nf_z"], nf_W)
     evp = eval_xytpos(ds.state, P["np_node"], P["np_z"], np_W)
     # W^T/2 via the closed-form 3x3 Cholesky (reads the upper triangle
-    # only); tiny jitter keeps PSD-singular priors finite
-    Wh_xyt = chol3(nf_W, jitter=1e-12)
-    Wh_pos = chol3(np_W, jitter=1e-12)
-    w_ok = _psd_ok(Wh_xyt, nf_W) & _psd_ok(Wh_pos, np_W)
+    # only); tiny jitter keeps PSD-singular priors finite; dead factors
+    # get zero rows
+    Wh_xyt = torch.where(xv[:, None, None], chol3(nf_W, jitter=1e-12), 0.0)
+    Wh_pos = torch.where(pv[:, None, None], chol3(np_W, jitter=1e-12), 0.0)
+    w_ok = _psd_ok(Wh_xyt, nf_W, xv) & _psd_ok(Wh_pos, np_W, pv)
 
     xyt_rows = _measurement_rows(
         Wh_xyt, [(P["nf_a_slot"], Wh_xyt @ ev.Ja),
-                 (P["nf_b_slot"], Wh_xyt @ ev.Jb)], m, dtype, dev)
+                 (P["nf_b_slot"], Wh_xyt @ ev.Jb)], M)
     xyt_rhs = (Wh_xyt @ ev.r[:, :, None]).reshape(-1)
-    pos_rows = _measurement_rows(
-        Wh_pos, [(P["np_slot"], Wh_pos)], m, dtype, dev)
+    pos_rows = _measurement_rows(Wh_pos, [(P["np_slot"], Wh_pos)], M)
     pos_rhs = (Wh_pos @ evp.r[:, :, None]).reshape(-1)
 
     C = torch.cat([R_dense, xyt_rows, pos_rows], dim=0)
@@ -537,24 +631,24 @@ def _frontal_core(ds: DeviceState, plan: StepPlan,
     sgn = torch.where(torch.diagonal(Rq) < 0, -1.0, 1.0).to(dtype)
     R_up = sgn[:, None] * Rq
     diag = torch.diagonal(R_up)
-    spd = w_ok & torch.all(torch.isfinite(diag) & (diag > 0))
+    spd = w_ok & torch.all(torch.where(
+        live3, torch.isfinite(diag) & (diag > 0), True))
 
     # forward solve on y (aprilsam.c:702-719): y' = Q^T d
     y_new = sgn * (Q.T @ d_stack)
-    ds.y[F_pos] = y_new.reshape(m, 3)
+    y[F_pos] = y_new.reshape(M, 3)
 
     # ---------------- R' back on the NEW pattern: newblocks[r, b] =
     # Rt[r, front slot of new_ridx[r, b]], zero where the slot is padding
-    Rt = R_up.reshape(m, 3, m, 3).permute(0, 2, 1, 3)
+    Rt = R_up.reshape(M, 3, M, 3).permute(0, 2, 1, 3)
     new_ridx = P["new_ridx"]
     scat_fc = pos2f[new_ridx.clamp(0, NCAP)]
-    Rt_p = torch.cat([Rt, torch.zeros(m, 1, 3, 3, dtype=dtype, device=dev)],
+    Rt_p = torch.cat([Rt, torch.zeros(M, 1, 3, 3, dtype=dtype, device=dev)],
                      dim=1)
-    ds.R_blocks[F_pos] = Rt_p[ar_m[:, None],
-                              torch.where(scat_fc >= 0, scat_fc, m)]
-    ds.R_idx[F_pos] = new_ridx
-    ds.R_nnz[F_pos] = P["new_nnz"]
-    return R_up, y_new, spd, pos2f, F_pos
+    R_blocks[F_pos] = Rt_p[ar[:, None], torch.where(scat_fc >= 0, scat_fc, M)]
+    R_idx[F_pos] = new_ridx
+    full(ds.R_nnz)[F_pos] = P["new_nnz"]
+    return R_up, y_new, spd, pos2f, row_valid
 
 
 def _relin_mask(dx, delta_xy: float, delta_theta: float):
@@ -568,136 +662,149 @@ def _saturated(start_over):
     return torch.clamp(start_over, max=1 << 30)
 
 
-def _finish(ds: DeviceState, chi2, spd, live: bool,
-            log_chi2: bool) -> torch.Tensor:
+def _log_chi2(ds: DeviceState, ctl, chi2) -> None:
+    """Write chi2 at the metric-ring row ctl[7] (the dump row: dropped)."""
+    full(ds.chi2_log).index_copy_(0, ctl[7:8], chi2.reshape(1))
+
+
+def _finish(ds: DeviceState, chi2, spd, ctl, log_chi2: bool) -> torch.Tensor:
     """Write the metric ring; return the policy stats [chi2, start_over,
     spd_ok] (cumulative since the last batch epoch)."""
-    if live:
-        ds.spd_ok = ds.spd_ok & spd
-        if log_chi2:
-            # writes past capacity drop; chi2_history() raises on readback
-            if ds.log_ptr < ds.chi2_log.shape[0]:
-                ds.chi2_log[ds.log_ptr] = chi2
-            ds.log_ptr += 1
+    ds.spd_ok &= spd | (ctl[0] == 0)
+    if log_chi2:
+        _log_chi2(ds, ctl, chi2)
     dtype = ds.chi2_log.dtype
     return torch.stack([chi2.to(dtype), ds.start_over.to(dtype),
                         ds.spd_ok.to(dtype)])
 
 
-def _step_chi2(ds: DeviceState, log_chi2: bool):
+def _step_chi2(ds: DeviceState, ctl, log_chi2: bool):
     if log_chi2:
-        return state_chi2(ds)
+        return state_chi2(ds, (ctl[5], ctl[6]))
     return torch.full((), float("nan"), dtype=ds.chi2_log.dtype,
                       device=ds.device)
 
 
-def _fast_body(ds: DeviceState, plan: StepPlan, P: Dict[str, torch.Tensor],
+def _fast_body(ds: DeviceState, P: Dict[str, torch.Tensor], M: int,
                delta_xy: float, delta_theta: float,
                log_chi2: bool) -> torch.Tensor:
     NCAP = ds.state.shape[0]
-    R_up, y_new, spd, pos2f, _F = _frontal_core(ds, plan, P)
+    dtype, dev = ds.state.dtype, ds.device
+    R_up, y_new, spd, pos2f, row_valid = _frontal_core(ds, P, M)
+    ctl = P["ctl"]
+    rel, delta_X = full(ds.relinearized), full(ds.delta_X)
 
     # back-substitution restricted to F (exact: F is ancestor-closed)
     dxF = torch.linalg.solve_triangular(
-        R_up, y_new[:, None], upper=True).reshape(plan.m, 3)
+        R_up, y_new[:, None], upper=True).reshape(M, 3)
     ids_F = P["F_node"]
-    already = ds.relinearized
-    relF = _relin_mask(dxF, delta_xy, delta_theta)
-    newly = (relF & ~already[ids_F]).sum()
-    already[ids_F] = already[ids_F] | relF
-    ds.delta_X[ids_F] = dxF
+    relF = _relin_mask(dxF, delta_xy, delta_theta) & row_valid
+    newly = (relF & ~rel[ids_F]).sum()
+    rel[ids_F] = rel[ids_F] | relF
+    delta_X[ids_F] = dxF
 
     # fringe: children of F — x, delta_X and relinearization only
     # (solve_node visits them once and prunes, aprilsam.c:752-771).  Their
     # resident rows are current; slot 0 is their own diagonal block.
-    if len(plan.fringe_pos):
-        fr_pos = P["fringe_pos"]
-        fr_rows = ds.R_blocks[fr_pos]                        # [FR, BCAP, 3, 3]
-        fc = pos2f[ds.R_idx[fr_pos].clamp(0, NCAP)]          # [FR, BCAP]
-        xw = torch.where((fc >= 0)[..., None], dxF[fc.clamp(min=0)], 0.0)
-        off = torch.einsum("kbij,kbj->ki", fr_rows, xw)
-        x_fr = solve_upper3(fr_rows[:, 0], ds.y[fr_pos] - off)
-        ids_fr = P["fringe_node"]
-        relfr = _relin_mask(x_fr, delta_xy, delta_theta)
-        newly = newly + (relfr & ~already[ids_fr]).sum()
-        already[ids_fr] = already[ids_fr] | relfr
-        ds.delta_X[ids_fr] = x_fr
-    ds.start_over = _saturated(ds.start_over) + newly
+    fr_pos = P["fringe_pos"]
+    fr_valid = torch.arange(fr_pos.shape[0], device=dev) < ctl[3]
+    fr_rows = torch.where(fr_valid[:, None, None, None],
+                          full(ds.R_blocks)[fr_pos], 0.0)   # [FR, BCAP, 3, 3]
+    fc = pos2f[full(ds.R_idx)[fr_pos].clamp(0, NCAP)]        # [FR, BCAP]
+    xw = torch.where((fc >= 0)[..., None], dxF[fc.clamp(min=0)], 0.0)
+    off = torch.einsum("kbij,kbj->ki", fr_rows, xw)
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    x_fr = solve_upper3(
+        torch.where(fr_valid[:, None, None], fr_rows[:, 0], eye),
+        torch.where(fr_valid[:, None], full(ds.y)[fr_pos] - off, 0.0))
+    ids_fr = P["fringe_node"]
+    relfr = _relin_mask(x_fr, delta_xy, delta_theta) & fr_valid
+    newly = newly + (relfr & ~rel[ids_fr]).sum()
+    rel[ids_fr] = rel[ids_fr] | relfr
+    delta_X[ids_fr] = x_fr
+    ds.start_over.copy_(_saturated(ds.start_over) + newly)
 
-    ok = ~torch.any(torch.isnan(dxF), dim=1)
-    new_state = ds.l_point[ids_F] + dxF
+    state = full(ds.state)
+    ok = row_valid & ~torch.any(torch.isnan(dxF), dim=1)
+    new_state = full(ds.l_point)[ids_F] + dxF
     new_state = torch.cat([new_state[:, :2], mod2pi(new_state[:, 2:])], dim=1)
-    ds.state[ids_F] = torch.where(ok[:, None], new_state, ds.state[ids_F])
+    state[ids_F] = torch.where(ok[:, None], new_state, state[ids_F])
 
-    chi2 = _step_chi2(ds, log_chi2)
-    return _finish(ds, chi2, spd, plan.m > 0, log_chi2)
+    chi2 = _step_chi2(ds, ctl, log_chi2)
+    return _finish(ds, chi2, spd, ctl, log_chi2)
 
 
 def _refresh_nodes(ds: DeviceState, dx, member, delta_xy: float,
                    delta_theta: float) -> None:
-    """State update of nodes [0, n) from their solution dx [n, 3] where
-    member [n, 1] (solve_node, aprilsam.c:721-779): relinearization
+    """State update of every node from its solution dx [NCAP, 3] where
+    member [NCAP, 1] (solve_node, aprilsam.c:721-779): relinearization
     counting, state = l_point + dx, delta_X = dx."""
-    n = ds.nnodes
     relin = _relin_mask(dx, delta_xy, delta_theta) & member[:, 0]
-    newly = (relin & ~ds.relinearized[:n]).sum()
-    ds.start_over = _saturated(ds.start_over) + newly
-    ds.relinearized[:n] |= relin
+    newly = (relin & ~ds.relinearized).sum()
+    ds.start_over.copy_(_saturated(ds.start_over) + newly)
+    ds.relinearized |= relin
 
     ok = member & ~torch.any(torch.isnan(dx), dim=1, keepdim=True)
-    new_state = ds.l_point[:n] + dx
+    new_state = ds.l_point + dx
     new_state = torch.cat([new_state[:, :2], mod2pi(new_state[:, 2:])], dim=1)
-    ds.state[:n] = torch.where(ok, new_state, ds.state[:n])
-    ds.delta_X[:n] = torch.where(ok, dx, ds.delta_X[:n])
+    ds.state.copy_(torch.where(ok, new_state, ds.state))
+    ds.delta_X.copy_(torch.where(ok, dx, ds.delta_X))
 
 
-def _global_sweep(ds: DeviceState, PANEL: int, NPANB: int,
+def _global_sweep(ds: DeviceState, n, PANEL: int, NPANB: int,
                   delta_xy: float, delta_theta: float) -> DeviceState:
     """Whole-graph back-substitution x = R^{-1} y and the update of every
     node (solve_node with pruning disabled, aprilsam.c:721-779) over the
-    NPANB active panels."""
-    n = ds.nnodes
+    NPANB active panels; n (0-d tensor) is the node count."""
+    NCAP = ds.state.shape[0]
     x_pos = panel_backsub(ds.R_blocks, ds.R_idx, ds.y, n, PANEL, NPANB)
-    every = torch.ones((n, 1), dtype=torch.bool, device=ds.device)
-    _refresh_nodes(ds, x_pos[ds.pos[:n]], every, delta_xy, delta_theta)
+    member = (torch.arange(NCAP, device=ds.device) < n)[:, None]
+    _refresh_nodes(ds, x_pos[ds.pos], member, delta_xy, delta_theta)
     return ds
 
 
-def _windowed_sweep(ds: DeviceState, panels, live: Sequence[int],
-                    PANEL: int, delta_xy: float,
+def _windowed_sweep(ds: DeviceState, panels, n, PANEL: int, delta_xy: float,
                     delta_theta: float) -> DeviceState:
     """Back-substitution and state update restricted to a panel WINDOW —
     the reference's pruned tree-gated descent (solve_node,
     aprilsam.c:721-779) at panel granularity.  `panels` [PW] holds
-    descending panel indices padded at the end with -1 (a tensor), `live`
-    the same without the padding (host).  Cost is O(PW), independent of
-    the trajectory length.  Nodes outside the window keep their states and
-    deltas; batch epochs and periodic full sweeps re-sync them."""
+    descending panel indices padded at the end with -1; n (0-d tensor) is
+    the node count.  Its cost grows with PW, not with the trajectory.
+    Nodes outside the window keep their states and deltas; batch epochs
+    and periodic full sweeps re-sync them."""
     NCAP = ds.state.shape[0]
     NPANMAX = NCAP // PANEL
-    n = ds.nnodes
+    live = (torch.arange(NCAP, device=ds.device) < n)[:, None]
     # previous solution in POSITION space (delta_X is node-indexed)
-    x_prev = torch.zeros(NCAP, 3, dtype=ds.state.dtype, device=ds.device)
-    x_prev[:n] = ds.delta_X[ds.order[:n]]
+    x_prev = torch.where(live, ds.delta_X[ds.order], 0.0)
     x_pos = panel_backsub_windowed(ds.R_blocks, ds.R_idx, ds.y, x_prev,
-                                   panels, live, n, PANEL)
+                                   panels, n, PANEL)
     # window membership per node, by panel
     pan_act = torch.zeros(NPANMAX + 1, dtype=torch.bool, device=ds.device)
     pan_act.index_fill_(0, torch.where(panels >= 0, panels, NPANMAX), True)
-    pos = ds.pos[:n]
-    member = pan_act[(pos // PANEL).clamp(0, NPANMAX - 1)][:, None]
-    dx = torch.where(member, x_pos[pos], 0.0)
+    member = pan_act[(ds.pos // PANEL).clamp(0, NPANMAX - 1)][:, None] & live
+    dx = torch.where(member, x_pos[ds.pos], 0.0)
     _refresh_nodes(ds, dx, member, delta_xy, delta_theta)
     return ds
 
 
-def _full_body(ds: DeviceState, plan: StepPlan, P: Dict[str, torch.Tensor],
+def _full_body(ds: DeviceState, P: Dict[str, torch.Tensor], M: int,
                PANEL: int, NPANB: int, delta_xy: float, delta_theta: float,
                log_chi2: bool) -> torch.Tensor:
-    _R, _y, spd, _pos2f, _F = _frontal_core(ds, plan, P)
-    _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
-    chi2 = _step_chi2(ds, log_chi2)
-    return _finish(ds, chi2, spd, plan.m > 0, log_chi2)
+    _R, _y, spd, _pos2f, _rv = _frontal_core(ds, P, M)
+    ctl = P["ctl"]
+    _global_sweep(ds, ctl[4], PANEL, NPANB, delta_xy, delta_theta)
+    chi2 = _step_chi2(ds, ctl, log_chi2)
+    return _finish(ds, chi2, spd, ctl, log_chi2)
+
+
+def sweep_body(ds: DeviceState, P: Dict[str, torch.Tensor], PANEL: int,
+               NPANB: int, delta_xy: float,
+               delta_theta: float) -> torch.Tensor:
+    """A standalone whole-graph sweep over the P["ctl"][0] nodes (flush's
+    staleness clear, a bundle's coalesced sweep); returns [start_over]."""
+    _global_sweep(ds, P["ctl"][0], PANEL, NPANB, delta_xy, delta_theta)
+    return ds.start_over.reshape(1)
 
 
 # ----------------------------------------------------------------------
@@ -724,95 +831,50 @@ def _sup_caps(cfg: SolverConfig) -> Tuple[int, int, int]:
     return S + KNODE, S + KSEED, max(2 * S, cfg.new_factor_capacity)
 
 
-def _superstep_stats(ds: DeviceState, stats: torch.Tensor, live: bool,
+def _superstep_stats(ds: DeviceState, stats: torch.Tensor, ctl,
                      log_chi2: bool) -> torch.Tensor:
     """Patch a superstep's stats after its sweep: stats[1] = start_over;
     with log_chi2, log the chi2 once and put it in stats[0]."""
     stats[1] = ds.start_over.to(stats.dtype)
-    if log_chi2 and live:
-        chi2 = state_chi2(ds)
-        if ds.log_ptr < ds.chi2_log.shape[0]:
-            ds.chi2_log[ds.log_ptr] = chi2
-        ds.log_ptr += 1
-        stats[0] = chi2
+    if log_chi2:
+        chi2 = state_chi2(ds, (ctl[5], ctl[6]))
+        _log_chi2(ds, ctl, chi2)
+        stats[0] = torch.where(ctl[0] > 0, chi2.to(stats.dtype), stats[0])
     return stats
 
 
-def inc_superstep(ds: DeviceState, plan: StepPlan,
-                  P: Dict[str, torch.Tensor], PANEL: int, NPANB: int,
-                  delta_xy: float, delta_theta: float,
-                  log_chi2: bool) -> torch.Tensor:
+def inc_superstep(ds: DeviceState, P: Dict[str, torch.Tensor], M: int,
+                  PANEL: int, NPANB: int, delta_xy: float,
+                  delta_theta: float, log_chi2: bool) -> torch.Tensor:
     """One joint frontal update over the union affected set of a buffer of
     steps, then one whole-graph sweep that refreshes every node's state and
     the relinearization counters."""
-    stats = _fast_body(ds, plan, P, delta_xy, delta_theta, False)
-    _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
-    return _superstep_stats(ds, stats, plan.m > 0, log_chi2)
+    stats = _fast_body(ds, P, M, delta_xy, delta_theta, False)
+    _global_sweep(ds, P["ctl"][4], PANEL, NPANB, delta_xy, delta_theta)
+    return _superstep_stats(ds, stats, P["ctl"], log_chi2)
 
 
-def inc_superstep_nosweep(ds: DeviceState, plan: StepPlan,
-                          P: Dict[str, torch.Tensor], delta_xy: float,
+def inc_superstep_nosweep(ds: DeviceState, P: Dict[str, torch.Tensor],
+                          M: int, delta_xy: float,
                           delta_theta: float) -> torch.Tensor:
     """A superstep WITHOUT the trailing sweep: the joint frontal update
     solves the union front + fringe exactly (so the next buffer's odometry
     seeds read post-front states); the refresh of the other nodes waits for
     the next swept superstep (cfg.sweep_every_supersteps), a batch epoch or
     flush()."""
-    return _fast_body(ds, plan, P, delta_xy, delta_theta, False)
+    return _fast_body(ds, P, M, delta_xy, delta_theta, False)
 
 
-def sweep_only(ds: DeviceState, PANEL: int, NPANB: int, delta_xy: float,
-               delta_theta: float) -> DeviceState:
-    """Standalone whole-graph sweep (flush-time staleness clear for the
-    nosweep and windowed superstep modes)."""
-    return _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
-
-
-def inc_superstep_win(ds: DeviceState, plan: StepPlan,
-                      P: Dict[str, torch.Tensor], live: Sequence[int],
+def inc_superstep_win(ds: DeviceState, P: Dict[str, torch.Tensor], M: int,
                       PANEL: int, delta_xy: float, delta_theta: float,
                       log_chi2: bool) -> torch.Tensor:
     """inc_superstep with a WINDOWED sweep over the panels P["panels"]
-    ([PW], descending, padded with -1; `live` without the padding): O(PW)
-    per superstep instead of O(N / PANEL).  The large-N throughput mode."""
-    stats = _fast_body(ds, plan, P, delta_xy, delta_theta, False)
-    _windowed_sweep(ds, P["panels"], live, PANEL, delta_xy, delta_theta)
-    return _superstep_stats(ds, stats, plan.m > 0, log_chi2)
-
-
-# ----------------------------------------------------------------------
-# bundles: consecutive steps in one dispatch
-# ----------------------------------------------------------------------
-
-def inc_bundle(ds: DeviceState, plans: Sequence[StepPlan],
-               fast: Sequence[bool], PANEL: int, NPANB: int,
-               delta_xy: float, delta_theta: float, log_chi2: bool,
-               coalesce: bool) -> torch.Tensor:
-    """A bundle of consecutive steps, slot by slot with no host read in
-    between: the JAX package's inc_bundle_fast (every slot fast),
-    inc_bundle_full (every slot full) and inc_bundle_mixed, whose padding
-    slots are no-ops and are not run here.  fast[i] is slot i's path.
-
-    With `coalesce`, a full slot runs its frontal update and the exact
-    solve of its affected set (the fast-path algebra at its own size: F is
-    ancestor-closed), and the whole-graph sweep that refreshes the other
-    nodes runs once at the end when any slot was full; the last slot's row
-    then carries the post-sweep start_over, so the policy sees the sweep's
-    relinearizations.  Returns the stats [k, 3]."""
-    Ps = [plan_tensors(ds, plan) for plan in plans]
-    rows = []
-    for plan, P, f in zip(plans, Ps, fast):
-        if f or coalesce:
-            rows.append(_fast_body(ds, plan, P, delta_xy, delta_theta,
-                                   log_chi2))
-        else:
-            rows.append(_full_body(ds, plan, P, PANEL, NPANB, delta_xy,
-                                   delta_theta, log_chi2))
-    stats = torch.stack(rows)
-    if coalesce and not all(fast):
-        _global_sweep(ds, PANEL, NPANB, delta_xy, delta_theta)
-        stats[-1, 1] = ds.start_over.to(stats.dtype)
-    return stats
+    ([PW], descending, padded with -1): O(PW) per superstep instead of
+    O(N / PANEL).  The large-N throughput mode."""
+    stats = _fast_body(ds, P, M, delta_xy, delta_theta, False)
+    _windowed_sweep(ds, P["panels"], P["ctl"][4], PANEL, delta_xy,
+                    delta_theta)
+    return _superstep_stats(ds, stats, P["ctl"], log_chi2)
 
 
 def packed_words(M: int, K: int, RCAP: int, half: bool, float_words: int,
@@ -875,11 +937,15 @@ class IncrementalSolver:
     reads each dispatch's stats policy_lag dispatches later, update() returns
     None, and flush() ends a replay."""
 
-    def __init__(self, cfg: Optional[SolverConfig] = None, device="cuda"):
+    def __init__(self, cfg: Optional[SolverConfig] = None, device="cuda",
+                 graphs: bool = True):
         self.cfg = cfg or SolverConfig()
         self.device = resolve_device(device)
         setup_precision()
         self.ds = init_device_state(self.cfg, self.device)
+        # one CUDA graph per signature on the card (graphs=False: every
+        # dispatch eager, to time the two; the CPU is always eager)
+        self.graphs = GraphCache(self.device, enabled=graphs)
         self.sym: Optional[SymbolicState] = None
         self.factor_num = 0
         self.node_num = 0
@@ -964,10 +1030,19 @@ class IncrementalSolver:
         tail = step_tail(g, f0, f_end, new_ids, seeds)
         if len(tail.nf_a) > K or len(tail.np_node) > K:
             return False
-        inc_ingest_tail(self.ds, tail, tail_tensors(self.ds, tail))
+        self._dispatch_ingest(tail, (knode, kseed, K))
         self._ingested_nodes = n_end
         self._ingested_factors = f_end
         return True
+
+    def _dispatch_ingest(self, tail: StepTail,
+                         caps: Tuple[int, int, int]) -> None:
+        knode, kseed, K = caps
+        ds = self.ds
+        ints, floats = tail_inputs(ds, tail, K, knode, kseed)
+        self.graphs.run(("ingest", knode, kseed, K), ds, ints, floats,
+                        lambda P: inc_ingest_tail(ds, P))
+        advance_counts(ds, tail, False)
 
     def _grow_row_capacity(self):
         cfg = dataclasses.replace(
@@ -975,12 +1050,15 @@ class IncrementalSolver:
             row_block_capacity=int(self.cfg.row_block_capacity * 3 // 2))
         NCAP, BCAP = cfg.node_capacity, cfg.row_block_capacity
         ds = self.ds
-        ds.R_blocks = torch.zeros((NCAP, BCAP, 3, 3), dtype=ds.R_blocks.dtype,
-                                  device=ds.device)
-        ds.R_idx = torch.full((NCAP, BCAP), NCAP, dtype=torch.int64,
-                              device=ds.device)
-        ds.R_nnz = torch.zeros(NCAP, dtype=torch.int64, device=ds.device)
+        ds.R_blocks = with_dump_row(torch.zeros(
+            (NCAP, BCAP, 3, 3), dtype=ds.R_blocks.dtype, device=ds.device))
+        ds.R_idx = with_dump_row(torch.full(
+            (NCAP, BCAP), NCAP, dtype=torch.int64, device=ds.device))
+        ds.R_nnz = with_dump_row(torch.zeros(NCAP, dtype=torch.int64,
+                                             device=ds.device))
         self.cfg = cfg
+        # the graphs read the freed tables
+        self.graphs.bump()
 
     def _maybe_grow_capacity(self, g: FactorGraph) -> None:
         """Double node/factor capacities before the incoming step could
@@ -1020,6 +1098,8 @@ class IncrementalSolver:
         h["pos"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
         h["order"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
         self.ds = state_from_numpy(h, self.device)
+        # the graphs read the old state's tensors
+        self.graphs.bump()
 
         # the native planner mirror is capacity-sized: rebuild it lazily
         sym = self.sym
@@ -1083,7 +1163,7 @@ class IncrementalSolver:
             try:
                 self.ds, self.sym, info, backend = run_batch_epoch(
                     self.ds, *head, log_mode=log_mode,
-                    lazy=self.cfg.policy_lag > 0)
+                    lazy=self.cfg.policy_lag > 0, graphs=self.graphs)
                 self.counters["epoch_" + backend] += 1
                 return info
             except PanelFallbackError:
@@ -1091,7 +1171,8 @@ class IncrementalSolver:
                 # not fit: the float64 host epoch (the JAX package's rule)
                 pass
         self.ds, self.sym, info = host_batch_epoch(
-            self.ds, *head, g.fz[:nf], g.fW[:nf], log_mode=log_mode)
+            self.ds, *head, g.fz[:nf], g.fW[:nf], log_mode=log_mode,
+            graphs=self.graphs)
         self.counters["epoch_host"] += 1
         return info
 
@@ -1252,14 +1333,57 @@ class IncrementalSolver:
 
     def _dispatch_one(self, plan: StepPlan, fast: bool,
                       npanb: int) -> torch.Tensor:
+        return self._dispatch_step(plan, "fast" if fast else "full", npanb)
+
+    def _dispatch_step(self, plan: StepPlan, kind: str, npanb: int = 0,
+                       panels: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One dispatch of a planned step or superstep at its signature:
+        kind "fast", "full" (per step), "sup", "supns", "win" (superstep;
+        "win" sweeps the window `panels`).  Returns its stats (on the card
+        the signature's stats buffer: the caller copies it before the
+        signature runs again)."""
         cfg = self.cfg
-        P = plan_tensors(self.ds, plan)
-        if fast:
-            return _fast_body(self.ds, plan, P, float(cfg.delta_xy),
-                              float(cfg.delta_theta), cfg.log_chi2)
-        return _full_body(self.ds, plan, P, cfg.panel_nodes, npanb,
-                          float(cfg.delta_xy), float(cfg.delta_theta),
-                          cfg.log_chi2)
+        ds = self.ds
+        M = plan.maxaff
+        PANEL = cfg.panel_nodes
+        dxy, dth = float(cfg.delta_xy), float(cfg.delta_theta)
+        log = cfg.log_chi2 and kind != "supns"
+        if kind in ("sup", "supns", "win"):
+            knode, kseed, K = _sup_caps(cfg)
+        else:
+            knode, kseed, K = KNODE, KSEED, cfg.new_factor_capacity
+        extra = {} if panels is None else {"panels": panels}
+        ints, floats = step_inputs(ds, plan, K, knode, kseed, log, **extra)
+        if kind == "fast":
+            key = ("fast", M)
+            body = lambda P: _fast_body(ds, P, M, dxy, dth, log)
+        elif kind == "full":
+            key = ("full", M, npanb)
+            body = lambda P: _full_body(ds, P, M, PANEL, npanb, dxy, dth,
+                                        log)
+        elif kind == "sup":
+            key = ("sup", M, npanb)
+            body = lambda P: inc_superstep(ds, P, M, PANEL, npanb, dxy, dth,
+                                           log)
+        elif kind == "supns":
+            key = ("supns", M)
+            body = lambda P: inc_superstep_nosweep(ds, P, M, dxy, dth)
+        else:
+            key = ("win", M, len(panels))
+            body = lambda P: inc_superstep_win(ds, P, M, PANEL, dxy, dth, log)
+        stats = self.graphs.run(key, ds, ints, floats, body)
+        advance_counts(ds, plan.tail, log and plan.m > 0)
+        return stats
+
+    def _dispatch_sweep(self, npanb: int, n: int) -> torch.Tensor:
+        """A lone whole-graph sweep over n nodes; returns [start_over]."""
+        cfg = self.cfg
+        ds = self.ds
+        dxy, dth = float(cfg.delta_xy), float(cfg.delta_theta)
+        return self.graphs.run(
+            ("sweep", npanb), ds, {"ctl": np.asarray([n], dtype=np.int64)},
+            {}, lambda P: sweep_body(ds, P, cfg.panel_nodes, npanb, dxy,
+                                     dth))
 
     def _npanb(self, nnodes: int) -> int:
         """Number of active sweep panels: the next power of two covering
@@ -1362,10 +1486,7 @@ class IncrementalSolver:
             return
         chunks = (self._mixed_chunks(entries) if sig[0] == "mixed"
                   else [entries])
-        dxy, dth = float(cfg.delta_xy), float(cfg.delta_theta)
-        out = [inc_bundle(self.ds, [p for p, _f in ch], [f for _p, f in ch],
-                          cfg.panel_nodes, npanb, dxy, dth, cfg.log_chi2,
-                          cfg.coalesce_full_solves) for ch in chunks]
+        out = [self._dispatch_bundle(ch, npanb) for ch in chunks]
         if cfg.coalesce_full_solves:
             for ch in chunks:
                 full = sum(not f for _p, f in ch)
@@ -1380,6 +1501,32 @@ class IncrementalSolver:
                     base + i, host, done, self._batch_serial,
                     step_ms=step_ms, row=i))
             base += len(ch)
+
+    def _dispatch_bundle(self, entries: list, npanb: int) -> torch.Tensor:
+        """A bundle of consecutive steps, slot by slot with no host read in
+        between: the JAX package's inc_bundle_fast (every slot fast),
+        inc_bundle_full (every slot full) and inc_bundle_mixed, whose
+        padding slots are no-ops and are not run here.  Each slot is one
+        dispatch (one replay) of its single-step signature, and its stats
+        row is copied out on the device.
+
+        With coalesce_full_solves, a full slot runs its frontal update and
+        the exact solve of its affected set (the fast-path algebra at its
+        own bucket: F is ancestor-closed), and the whole-graph sweep that
+        refreshes the other nodes runs once at the end when any slot was
+        full; the last slot's row then carries the post-sweep start_over,
+        so the policy sees the sweep's relinearizations.  Returns the stats
+        [k, 3]."""
+        coalesce = self.cfg.coalesce_full_solves
+        ds = self.ds
+        rows = torch.empty((len(entries), 3), dtype=ds.chi2_log.dtype,
+                           device=ds.device)
+        for i, (plan, fast) in enumerate(entries):
+            rows[i] = self._dispatch_step(
+                plan, "fast" if fast or coalesce else "full", npanb)
+        if coalesce and not all(f for _p, f in entries):
+            rows[-1, 1] = self._dispatch_sweep(npanb, ds.nnodes)[0]
+        return rows
 
     # ------------------------------------------------------- supersteps
 
@@ -1491,7 +1638,6 @@ class IncrementalSolver:
         self.counters["superstep"] += 1
         self.counters["sup_m_sum"] += plan.m
         self.counters["sup_m_max"] = max(self.counters["sup_m_max"], plan.m)
-        dxy, dth = float(cfg.delta_xy), float(cfg.delta_theta)
 
         # sweep cadence: only every K-th superstep sweeps
         cadence = max(1, cfg.sweep_every_supersteps)
@@ -1499,9 +1645,7 @@ class IncrementalSolver:
             self._sup_since_sweep += 1
             self._sweep_stale = True
             self.counters["sup_nosweep"] += 1
-            stats = inc_superstep_nosweep(
-                self.ds, plan, plan_tensors(self.ds, plan), dxy, dth)
-            self._defer(stats, k)
+            self._defer(self._dispatch_step(plan, "supns"), k)
             return
         self._sup_since_sweep = 0
 
@@ -1522,15 +1666,10 @@ class IncrementalSolver:
         if win is not None:
             self._sweep_stale = True
             self.counters["sweep_win"] += 1
-            stats = inc_superstep_win(
-                self.ds, plan, plan_tensors(self.ds, plan, panels=win),
-                win[:len(pans)].tolist(), cfg.panel_nodes, dxy, dth,
-                cfg.log_chi2)
+            stats = self._dispatch_step(plan, "win", panels=win)
         else:
             self._sweep_stale = False
-            stats = inc_superstep(
-                self.ds, plan, plan_tensors(self.ds, plan), cfg.panel_nodes,
-                self._npanb(g.nnodes), dxy, dth, cfg.log_chi2)
+            stats = self._dispatch_step(plan, "sup", self._npanb(g.nnodes))
         self._defer(stats, k)
 
     def flush(self, g: FactorGraph) -> None:
@@ -1540,11 +1679,127 @@ class IncrementalSolver:
         self._dispatch_queue()
         if self._sweep_stale:
             self.counters["sweep_flush"] += 1
-            sweep_only(self.ds, self.cfg.panel_nodes,
-                       self._npanb(g.nnodes), float(self.cfg.delta_xy),
-                       float(self.cfg.delta_theta))
+            self._dispatch_sweep(self._npanb(g.nnodes), self.ds.nnodes)
             self._sweep_stale = False
         self._drain_pending(g, block_all=True)
+
+    # ------------------------------------------------- ahead of time
+
+    def default_signatures(self, nnodes: Optional[int] = None):
+        """The step-shape signatures of the config and (optionally) the
+        expected trajectory length: the JAX package's tuples, line for line
+        (aprilsam_tpu/solver/incremental.py:default_signatures).  EVERY
+        active-panel count the replay passes through is included (1, 2, 4,
+        ... then npanb_max itself, which need not be a power of two): a
+        growing trajectory crosses each doubling once.  MIXED_FR is the only
+        fringe layout (plan_step sends larger-fringe fast steps to the full
+        path), so the list covers every shape a replay dispatches."""
+        fr = MIXED_FR
+        npanb_max = self._npanb(nnodes if nnodes
+                                else self.cfg.node_capacity)
+        npanbs = []
+        b = 1
+        while b < npanb_max:
+            npanbs.append(b)
+            b *= 2
+        # _npanb clamps to NPAN = node_capacity // panel_nodes, which need
+        # not be a power of two: the terminal count is appended explicitly
+        npanbs.append(npanb_max)
+        if self.cfg.superstep_size > 1:
+            # superstep mode: one signature per (union bucket, panel count);
+            # a bucket is reachable at a panel count only if some
+            # m <= npanb*PANEL lands in it
+            sigs = []
+            buckets = self.cfg.effective_superstep_buckets
+            for npanb in npanbs:
+                lim = npanb * self.cfg.panel_nodes
+                for j, b in enumerate(buckets):
+                    prev = buckets[j - 1] if j else 0
+                    if prev < lim:
+                        sigs.append(("sup", b, npanb))
+            return tuple(sigs)
+        sigs = [("fast", self.cfg.frontal_buckets[0], fr)]
+        if self.cfg.mixed_bundles and self.cfg.bundle_size > 1:
+            # mixed mode: one signature per active-panel count covers every
+            # fast/full bucket
+            sigs += [("mixed", npanb) for npanb in npanbs]
+            return tuple(sigs)
+        for b in self.cfg.frontal_buckets[:3]:
+            for npanb in npanbs:
+                sigs.append(("full", b, fr, npanb))
+        # the biggest bucket is rare (plan overflow headroom): only the
+        # late-trajectory panel counts it could realistically hit
+        big = (self.cfg.frontal_buckets[3]
+               if len(self.cfg.frontal_buckets) > 3 else None)
+        if big is not None:
+            sigs.append(("full", big, fr, npanb_max))
+            second = npanbs[-2] if len(npanbs) > 1 else None
+            if second is not None:
+                sigs.append(("full", big, fr, second))
+        return tuple(sigs)
+
+    def _graph_signatures(self, sig) -> List[tuple]:
+        """The port's dispatch signatures (kind, M, npanb) behind one of
+        default_signatures' tuples: every graph a replay of that signature
+        can run, in this config."""
+        cfg = self.cfg
+        coalesce = cfg.bundle_size > 1 and cfg.coalesce_full_solves
+        if sig[0] == "sup":
+            _s, M, npanb = sig
+            out = [("sup", M, npanb)]
+            if cfg.sweep_window_panels > 0:
+                out.append(("win", M, 0))
+            if cfg.sweep_every_supersteps > 1:
+                out.append(("supns", M, 0))
+            if cfg.sweep_window_panels > 0 or cfg.sweep_every_supersteps > 1:
+                out.append(("sweep", 0, npanb))       # flush()'s sweep
+            return out
+        if sig[0] == "mixed":
+            npanb = sig[1]
+            if coalesce:
+                return [("fast", b, 0) for b in MIXED_BUCKETS] + [
+                    ("sweep", 0, npanb)]
+            return [("fast", MIXED_BUCKETS[0], 0)] + [
+                ("full", b, npanb) for b in MIXED_BUCKETS]
+        if sig[0] == "fast":
+            return [("fast", sig[1], 0)]
+        out = [("full", sig[1], sig[3])]
+        if coalesce:
+            out += [("fast", sig[1], 0), ("sweep", 0, sig[3])]
+        return out
+
+    def precompile(self, signatures=None, nnodes: Optional[int] = None) -> int:
+        """Prepare the step, superstep and bundle signatures ahead of time
+        by running dead plans (m = 0) through each, as the JAX package
+        compiles them: on the card, the first dispatch of each signature
+        runs it eagerly and captures its CUDA graph, so no capture lands
+        mid-run.  Dead dispatches write only the dump rows: the solver
+        state is left as it was, at any point of a replay.  Returns the
+        number of signatures (the JAX package's count: each of
+        `signatures`, then the plan-overflow ingestion)."""
+        cfg = self.cfg
+        signatures = signatures or self.default_signatures(nnodes)
+        BCAP = cfg.row_block_capacity
+        PW = cfg.sweep_window_panels
+        count = 0
+        for sig in signatures:
+            for kind, M, npanb in self._graph_signatures(sig):
+                if kind == "sweep":
+                    self._dispatch_sweep(npanb, 0)
+                else:
+                    self._dispatch_step(
+                        dead_plan(M, BCAP), kind, npanb,
+                        np.full(PW, -1, dtype=np.int64) if kind == "win"
+                        else None)
+            count += 1
+        caps = (_sup_caps(cfg) if cfg.superstep_size > 1
+                else (KNODE, KSEED, cfg.new_factor_capacity))
+        self._dispatch_ingest(empty_tail(), caps)
+        count += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._last_dispatch_t = None   # not part of the gate's clock
+        return count
 
     # ---------------------------------------------------------------
 

@@ -16,9 +16,18 @@ Layout conventions (the same as the JAX package):
 
 Index tensors are int64 (PyTorch's index type); the counts the host owns
 (n_xyt, n_pos, nnodes, log_ptr) are Python ints, so slicing to the live
-rows needs no device read.  start_over and spd_ok are computed on the device
-and stay 0-d tensors.  ``state_to_numpy``/``state_from_numpy`` convert to
-and from the JAX package's field names and dtypes.
+rows needs no device read.  Captured code never reads them: a dispatch
+uploads the counts it needs (step_inputs in incremental.py).  start_over
+and spd_ok are computed on the device and stay 0-d tensors.
+``state_to_numpy``/``state_from_numpy`` convert to and from the JAX
+package's field names and dtypes.
+
+Dump rows: every table a step scatters into (DUMP) holds one row past its
+capacity.  The dead slots of a padded dispatch write there, where the JAX
+package drops them (``mode="drop"`` at index capacity); torch has no drop
+mode, and a clamp would point dead slots at a live row.  The field is the
+view of the first `capacity` rows, so shapes, checkpoints and chi2 never
+see the dump row; ``full(field)`` is the table with it.
 """
 
 from __future__ import annotations
@@ -44,6 +53,24 @@ FIELDS = (
 _HOST_INTS = ("n_xyt", "n_pos", "nnodes", "log_ptr")
 _INDEX = ("R_idx", "R_nnz", "pos", "order", "xyt_a", "xyt_b", "pos_node",
           "start_over")
+DUMP = ("R_blocks", "R_idx", "R_nnz", "y", "state", "l_point", "delta_X",
+        "relinearized", "xyt_a", "xyt_b", "xyt_z", "xyt_W", "pos_node",
+        "pos_z", "pos_W", "chi2_log")
+
+
+def with_dump_row(t: torch.Tensor) -> torch.Tensor:
+    """t copied into a table with one more (zero) row; returns the view of
+    its first t.shape[0] rows."""
+    return torch.cat([t, t.new_zeros((1,) + tuple(t.shape[1:]))])[:-1]
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    """The table behind a DUMP field, dump row included."""
+    b = t._base
+    if (b is None or b.shape[0] != t.shape[0] + 1
+            or b.data_ptr() != t.data_ptr()):
+        raise ValueError("not a field with a dump row (see with_dump_row)")
+    return b
 
 
 @dataclasses.dataclass
@@ -92,7 +119,7 @@ def init_device_state(cfg: SolverConfig, device) -> DeviceState:
     dt = cfg.torch_dtype
     f = lambda *s: torch.zeros(s, dtype=dt, device=device)
     i = lambda *s: torch.zeros(s, dtype=torch.int64, device=device)
-    return DeviceState(
+    ds = DeviceState(
         R_blocks=f(NCAP, BCAP, 3, 3),
         R_idx=torch.full((NCAP, BCAP), NCAP, dtype=torch.int64,
                          device=device),
@@ -119,17 +146,43 @@ def init_device_state(cfg: SolverConfig, device) -> DeviceState:
         chi2_log=f(cfg.effective_log_capacity),
         log_ptr=0,
     )
+    for name in DUMP:
+        setattr(ds, name, with_dump_row(getattr(ds, name)))
+    return ds
 
 
-def state_chi2(ds: DeviceState) -> torch.Tensor:
+def state_chi2(ds: DeviceState, counts=None) -> torch.Tensor:
     """Graph chi2 at the current states with the reference's 0.5x/1.0x
-    convention (april_graph.c:79-98), over the live factor rows."""
+    convention (april_graph.c:79-98), over the live factor rows: the first
+    ds.n_xyt / ds.n_pos, or, where `counts` gives them as 0-d device
+    tensors (n_xyt, n_pos), every row masked to those (captured code)."""
     from ..factors import graph_chi2
 
-    nx, npo = ds.n_xyt, ds.n_pos
-    return graph_chi2(ds.state, ds.xyt_a[:nx], ds.xyt_b[:nx], ds.xyt_z[:nx],
-                      ds.xyt_W[:nx], ds.pos_node[:npo], ds.pos_z[:npo],
-                      ds.pos_W[:npo])
+    if counts is None:
+        nx, npo = ds.n_xyt, ds.n_pos
+        return graph_chi2(ds.state, ds.xyt_a[:nx], ds.xyt_b[:nx],
+                          ds.xyt_z[:nx], ds.xyt_W[:nx], ds.pos_node[:npo],
+                          ds.pos_z[:npo], ds.pos_W[:npo])
+    dev = ds.device
+    mx = torch.arange(ds.xyt_a.shape[0], device=dev) < counts[0]
+    mp = torch.arange(ds.pos_node.shape[0], device=dev) < counts[1]
+    return graph_chi2(ds.state, ds.xyt_a, ds.xyt_b, ds.xyt_z, ds.xyt_W,
+                      ds.pos_node, ds.pos_z, ds.pos_W, mx, mp)
+
+
+def _host_copy(arrays: Dict[str, np.ndarray], dtype, pin: bool):
+    """The arrays back to back in one host tensor; returns it and each
+    array's offset."""
+    flat = [np.asarray(a).reshape(-1) for a in arrays.values()]
+    host = torch.empty(sum(len(f) for f in flat), dtype=dtype,
+                       pin_memory=pin)
+    h = host.numpy()
+    offs, o = [], 0
+    for f in flat:
+        h[o:o + len(f)] = f
+        offs.append(o)
+        o += len(f)
+    return host, offs
 
 
 def upload(ds: DeviceState, ints: Dict[str, np.ndarray],
@@ -145,19 +198,49 @@ def upload(ds: DeviceState, ints: Dict[str, np.ndarray],
     for arrays, dtype in ((ints, torch.int64), (floats, ds.state.dtype)):
         if not arrays:
             continue
-        flat = [np.asarray(a).reshape(-1) for a in arrays.values()]
-        host = torch.empty(sum(len(f) for f in flat), dtype=dtype,
-                           pin_memory=cuda)
-        h = host.numpy()
-        offs, o = [], 0
-        for f in flat:
-            h[o:o + len(f)] = f
-            offs.append(o)
-            o += len(f)
+        host, offs = _host_copy(arrays, dtype, cuda)
         dev = host.to(ds.device, non_blocking=True) if cuda else host
-        for (name, a), o, f in zip(arrays.items(), offs, flat):
-            out[name] = dev[o:o + len(f)].view(np.shape(a))
+        for (name, a), o in zip(arrays.items(), offs):
+            out[name] = dev[o:o + np.size(a)].view(np.shape(a))
     return out
+
+
+class StaticInputs:
+    """The device buffers a captured graph reads its inputs from: one
+    int64 and one float buffer, laid out as the arrays of the first
+    dispatch (upload's form), and `P`, the views of each array.  load()
+    writes a dispatch of the same shapes into them: one pinned host buffer
+    and one asynchronous copy per dtype, on the current stream.  The host
+    buffer comes from PyTorch's caching host allocator, which does not
+    hand it out again before its copy completes, so consecutive dispatches
+    (the slots of a bundle) never wait for each other's copies."""
+
+    def __init__(self, ds: DeviceState, ints: Dict[str, np.ndarray],
+                 floats: Dict[str, np.ndarray]):
+        self.shapes = [{k: np.shape(a) for k, a in arrays.items()}
+                       for arrays in (ints, floats)]
+        self.dtypes = (torch.int64, ds.state.dtype)
+        self.bufs, self.P = [], {}
+        for shapes, dtype in zip(self.shapes, self.dtypes):
+            n = sum(int(np.prod(s)) for s in shapes.values())
+            buf = torch.zeros(n, dtype=dtype, device=ds.device)
+            o = 0
+            for name, s in shapes.items():
+                k = int(np.prod(s))
+                self.P[name] = buf[o:o + k].view(s)
+                o += k
+            self.bufs.append(buf)
+
+    def load(self, ints: Dict[str, np.ndarray],
+             floats: Dict[str, np.ndarray]) -> None:
+        for arrays, shapes, dtype, buf in zip((ints, floats), self.shapes,
+                                              self.dtypes, self.bufs):
+            if {k: np.shape(a) for k, a in arrays.items()} != shapes:
+                raise ValueError("dispatch does not match its signature's "
+                                 "input shapes")
+            if arrays:
+                host, _offs = _host_copy(arrays, dtype, True)
+                buf.copy_(host, non_blocking=True)
 
 
 # ------------------------------------------------------------ carry-across
@@ -194,6 +277,8 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device,
         else:
             t = torch.as_tensor(a, device=device)
             kw[name] = t if dtype is None else t.to(dtype)
+    for name in DUMP:
+        kw[name] = with_dump_row(kw[name])
     return DeviceState(**kw)
 
 

@@ -5,19 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cache import GraphCache, setup_precision
 from .timeprofile import TimeProfile
-
-
-def setup_precision() -> None:
-    """Keep float32 products in full float32 on the card.
-
-    Counterpart of ``aprilsam_tpu/utils/cache.py:setup_precision``: reduced-
-    precision operands made the assembled normal equations indefinite on the
-    TPU (DESIGN.md section 3).  The H100's analogue is TF32, which keeps about
-    three decimal digits, so it is off for matmul and for cuDNN.
-    """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device) -> torch.device:
@@ -39,4 +28,5 @@ def torch_dtype(dtype) -> torch.dtype:
             np.dtype(np.float32): torch.float32}[np.dtype(dtype)]
 
 
-__all__ = ["TimeProfile", "resolve_device", "setup_precision", "torch_dtype"]
+__all__ = ["GraphCache", "TimeProfile", "resolve_device", "setup_precision",
+           "torch_dtype"]

@@ -17,6 +17,11 @@ and prints no result line):
      yardstick's call times (CUDA events, after warm-up) beside the bound,
      and the device time of each CUDA kernel the kernel and the library
      launch (torch.profiler);
+Every replay below runs on CUDA graphs: the solver first runs precompile
+(its step, superstep and bundle signatures at 3500 poses) and the ladder
+of its batch epoch's expansion or dense fallback, and after the replay each
+phase prints its dispatches and graph replays by kind ("graphs"), which
+must be equal: one replay per dispatch, none eager.
   4. the tutorial dogleg through IncrementalSolver on the card (chi2
      7.805041);
   5. the main path: Replay(manhattan_world(3500, seed=0)) on the card in
@@ -45,7 +50,8 @@ and prints no result line):
      float64, with batch_backend="device" (dense) and "panel", each held
      against the host epoch on the same graph (same ordering, chi2, R, y
      and states within EPOCH_TOL) and timed beside it (median of 3 after a
-     warm-up, host clock ending in torch.cuda.synchronize()), the host's
+     warm-up, host clock ending in torch.cuda.synchronize(); the epochs
+     replay the graphs their first solve captured), the host's
      time to plan and enqueue a lazy epoch, and its symbolic phase and
      panel plan alone; the panel epoch's back-substitution launches K1
      once at [32,384,384];
@@ -71,7 +77,27 @@ and prints no result line):
      separator, float64 (held to each other and to the host BatchSolver,
      SCHUR_TOL) and float32 (to each other); the partition's sizes, ms per
      iteration and peak device memory of each run;
- 13. one JSON line listing every ported kernel, with K1's launches on each
+ 13. the ahead-of-time surface: precompile for the per-step, S = 96
+     bench, windowed and bundled configs, and the dense epoch's, the
+     panel epoch's and the expansion's ladders, at 3500 poses:
+     signatures, graphs, capture seconds by signature and in all, and the
+     device memory they hold;
+     then AOT_POSES poses per step, at S = 96 (bench config), at S = 96
+     with panel epochs (the ring and the bench configs of phase 9) and in
+     bundles of 8, eager (solver.graphs.enabled = False) and on graphs in
+     the same call (the superstep replays three times each, in turn):
+     poses/s, host ms per dispatch and per batch epoch, device operations
+     per dispatch and the device's idle share (torch.profiler over a
+     window), synchronizing calls per dispatch, K1's launches by shape
+     and the chi2 ring: at policy_lag=0 equal in every run (the ring to
+     relative 1e-9), lagged the final chi2 within CHI2_BAND (the lagged
+     policy's reads depend on timing);
+ 14. float32 on the card: the per-step replay of 3500 poses in float32
+     on graphs against golden/manhattan3500_seed0_f32.txt (the JAX
+     package's float32 replay): the first step whose path differs and the
+     first whose chi2 differs by more than relative 1e-4, recorded, not
+     held to;
+ 15. one JSON line listing every ported kernel, with K1's launches on each
      path and by shape, and their launch-weighted kernel and library
      times; the card's line; and the result line
      {"ok": true, "device": {...}}.
@@ -82,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
@@ -107,6 +134,12 @@ PANEL_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
                             "manhattan3500_seed0_super96_panel.txt")
 BUNDLED_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
                               "manhattan3500_seed0_bundled8.txt")
+F32_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
+                          "manhattan3500_seed0_f32.txt")
+# phase 13: graphs against eager on AOT_POSES poses, the profiler over
+# steps AOT_WINDOW of the per-step and bundled replays
+AOT_POSES = 3500
+AOT_WINDOW = (1000, 1100)
 CHI2_BAND = 0.05   # the JAX package's own band for lagged superstep runs
 # A device epoch against the host epoch on manhattan_world(3500) from its
 # initial states (chi2 ~1e5): the three factorizations agree to float64
@@ -334,9 +367,9 @@ def run_tutorial() -> None:
                       "y": ys.tolist()}), flush=True)
 
 
-def read_golden():
+def read_golden(path: str = GOLDEN):
     steps, paths, chi2 = [], [], []
-    with open(GOLDEN) as f:
+    with open(path) as f:
         for line in f:
             if line.startswith("#"):
                 continue
@@ -412,6 +445,52 @@ def check_replay(K, name: str, card: str, rep, res, secs: float,
     return by_shape
 
 
+def prepare_graphs(solver, nnodes: int = 3500) -> dict:
+    """Capture the solver's graphs for an nnodes-pose replay: precompile
+    (its step, superstep and bundle signatures) and the ladder of its
+    batch epoch's expansion (host epochs) or dense epoch (device
+    backends); then zero its dispatch counts.  First frees the solvers
+    and graphs of earlier replays (the phases' wrappers make reference
+    cycles), so that every timed replay starts from the same process
+    state.  Returns the counts and seconds."""
+    from aprilsam_tpu_torch.solver.batch import precompile_device_batch
+    from aprilsam_tpu_torch.solver.host_batch import precompile_expand
+    from aprilsam_tpu_torch.solver.panel_epoch import precompile_panel_epoch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sigs = solver.precompile(nnodes=nnodes)
+    cfg = solver.cfg
+    if cfg.batch_backend in ("device", "panel"):
+        rungs = precompile_device_batch(solver.ds, cfg, nnodes,
+                                        solver.graphs)
+        if cfg.batch_backend == "panel":
+            rungs += precompile_panel_epoch(solver.ds, cfg, nnodes,
+                                            solver.graphs)
+    else:
+        rungs = precompile_expand(solver.ds, cfg, nnodes, solver.graphs)
+    torch.cuda.synchronize()
+    g = solver.graphs
+    g.calls.clear()
+    g.replayed.clear()
+    return {"signatures": sigs, "epoch_signatures": rungs,
+            "graphs": len(g.graphs), "seconds": time.perf_counter() - t}
+
+
+def graph_use(solver, name: str, prepared: dict) -> dict:
+    """The replay's dispatches and graph replays by kind since
+    prepare_graphs; raises unless every dispatch replayed a graph."""
+    g = solver.graphs
+    use = {"precompile": prepared, "dispatches": dict(g.calls),
+           "replays": dict(g.replayed), "graphs_after": len(g.graphs)}
+    if not g.enabled or not g.calls or g.calls != g.replayed:
+        raise AssertionError(f"{name}: dispatches {dict(g.calls)} are not "
+                             f"all graph replays {dict(g.replayed)}")
+    return use
+
+
 def run_main_path(K, card: str, ckpt_path: str) -> tuple:
     """Phase 5.  Saves the solver to ckpt_path after CHECKPOINT_AT steps
     and goes on.  Returns the tri_inv launches by (B, N, dtype name) and
@@ -426,6 +505,7 @@ def run_main_path(K, card: str, ckpt_path: str) -> tuple:
     rep = Replay(loaded, SolverConfig(wallclock_gate=False), device="cuda")
     if rep.solver.ds.state.dtype != torch.float64:
         raise AssertionError("the main path runs in float64")
+    prepared = prepare_graphs(rep.solver, n)
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -442,7 +522,8 @@ def run_main_path(K, card: str, ckpt_path: str) -> tuple:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0 - ckpt["save_ms"] / 1e3
     return check_replay(K, "replay", card, rep, res, secs, 0, {
-        "checkpoint_save_ms": ckpt["save_ms"]}), ckpt
+        "checkpoint_save_ms": ckpt["save_ms"],
+        "graphs": graph_use(rep.solver, "replay", prepared)}), ckpt
 
 
 def run_checkpoint_resume(K, card: str, ckpt_path: str, ckpt: dict) -> dict:
@@ -463,6 +544,7 @@ def run_checkpoint_resume(K, card: str, ckpt_path: str, ckpt: dict) -> dict:
     torch.cuda.synchronize()
     load_ms = (time.perf_counter() - t) * 1e3
     rep.graph, rep.event_idx = ckpt["graph"], ckpt["event_idx"]
+    prepared = prepare_graphs(rep.solver, n)
     K.reset_launches()
     t0 = time.perf_counter()
     res = [rep.step() for _ in range(n - ckpt["event_idx"])]
@@ -475,7 +557,10 @@ def run_checkpoint_resume(K, card: str, ckpt_path: str, ckpt: dict) -> dict:
     return check_replay(K, "checkpoint-resume", card, rep, res, secs,
                         ckpt["event_idx"], {
                             "file_bytes": os.path.getsize(ckpt_path),
-                            "save_ms": ckpt["save_ms"], "load_ms": load_ms})
+                            "save_ms": ckpt["save_ms"], "load_ms": load_ms,
+                            "graphs": graph_use(rep.solver,
+                                                "checkpoint-resume",
+                                                prepared)})
 
 
 def run_distributed(card: str) -> None:
@@ -610,35 +695,44 @@ def golden_config(entry: dict):
     return SolverConfig(**kw)
 
 
+# the solver method of one dispatch, by mode, and whether it has work;
+# "epochs" are the batch epochs (DispatchTimer only)
+DISPATCH = {"superstep": ("_dispatch_superstep", lambda s: s._sbuf),
+            "bundles": ("_dispatch_queue", lambda s: s._queue),
+            "per-step": ("_dispatch_one", lambda s: True),
+            "epochs": ("_run_batch", lambda s: True)}
+
+
 class SyncCounter:
     """Records every synchronizing CUDA call (torch.cuda.set_sync_debug_mode
-    "warn") made inside the solver's superstep dispatches (or, with
-    bundles=True, its bundle dispatches), by call site; batch epochs (a
-    union-overflow fallback, or one the policy fires) and the policy's
+    "warn") made inside the solver's dispatches of `mode` (DISPATCH:
+    superstep, bundle or per-step dispatches), by call site; batch epochs
+    (a union-overflow fallback, or one the policy fires) and the policy's
     reads of the stats are not counted."""
 
-    def __init__(self, solver, bundles: bool = False):
+    def __init__(self, solver, mode: str = "superstep"):
         self.dispatches = 0
         self.sites = Counter()
-        name = "_dispatch_queue" if bundles else "_dispatch_superstep"
+        name, busy = DISPATCH[mode]
         dispatch, batch = getattr(solver, name), solver._run_batch
 
-        def counted_dispatch():
-            if not (solver._queue if bundles else solver._sbuf):
-                return dispatch()
+        def counted_dispatch(*args):
+            if not busy(solver):
+                return dispatch(*args)
             self.dispatches += 1
             mode = torch.cuda.get_sync_debug_mode()
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 torch.cuda.set_sync_debug_mode("warn")
                 try:
-                    dispatch()
+                    out = dispatch(*args)
                 finally:
                     torch.cuda.set_sync_debug_mode(mode)
             for w in caught:
                 if "synchroniz" in str(w.message):
                     site = os.path.relpath(w.filename, REPO)
                     self.sites[f"{site}:{w.lineno}"] += 1
+            return out
 
         def uncounted_batch(*args, **kw):
             mode = torch.cuda.get_sync_debug_mode()
@@ -650,12 +744,346 @@ class SyncCounter:
 
         setattr(solver, name, counted_dispatch)
         solver._run_batch = uncounted_batch
+        self.restore = lambda: (setattr(solver, name, dispatch),
+                                setattr(solver, "_run_batch", batch))
 
     def summary(self) -> dict:
         total = sum(self.sites.values())
         return {"dispatches": self.dispatches, "syncs": total,
                 "syncs_per_dispatch": total / max(self.dispatches, 1),
                 "sites": dict(self.sites)}
+
+
+class DispatchTimer:
+    """Host seconds spent inside the solver's dispatches of `mode`
+    (DISPATCH), and their count."""
+
+    def __init__(self, solver, mode: str):
+        name, busy = DISPATCH[mode]
+        inner = getattr(solver, name)
+        self.seconds, self.count = 0.0, 0
+
+        def timed(*args, **kw):
+            if not busy(solver):
+                return inner(*args, **kw)
+            t = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t
+                self.count += 1
+        setattr(solver, name, timed)
+
+
+def device_window(fn) -> dict:
+    """fn() under torch.profiler: its wall seconds (ending in a
+    synchronize), the device-side self time summed over the device rows
+    (kernels, copies, sets; one stream), the idle share, and the device
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy_us, events = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = next((float(getattr(e, k)) for k in (
+            "self_device_time_total", "self_cuda_time_total")
+            if getattr(e, k, None) is not None), 0.0)
+        if us > 0:
+            busy_us += us
+            events += e.count
+    if events == 0:
+        raise AssertionError("the profiler recorded no device-side rows")
+    return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e6 / wall,
+            "device_events": events}
+
+
+def aot_replay(K, cfg, deferred: bool, mode: str, graphs: bool) -> dict:
+    """Phase 13, one timed replay of AOT_POSES poses, on graphs (after
+    prepare_graphs) or eager: poses/s, host ms per dispatch and per batch
+    epoch (a lazy epoch's enqueue; at policy_lag=0 up to the read of its
+    chi2), K1's launches by shape, the chi2 ring."""
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+
+    # the previous replay's solver and graphs (its timers make a cycle;
+    # prepare_graphs frees them too, for the replays on graphs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = Replay(manhattan_world(AOT_POSES, seed=0), cfg, deferred=deferred,
+                 device="cuda")
+    rep.solver.graphs.enabled = graphs
+    prep = prepare_graphs(rep.solver, AOT_POSES) if graphs else None
+    timer = DispatchTimer(rep.solver, mode)
+    epochs = DispatchTimer(rep.solver, "epochs")
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rep.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    s = rep.solver
+    out = {"graphs": graphs, "seconds": secs,
+           "poses_per_s": AOT_POSES / secs, "dispatches": timer.count,
+           "host_ms_per_dispatch": timer.seconds * 1e3 / max(timer.count, 1),
+           "epochs": epochs.count,
+           "host_ms_per_epoch": epochs.seconds * 1e3 / max(epochs.count, 1),
+           "tri_inv_launches": K.launches,
+           "by_shape": dict(K.launches_by_shape),
+           "census": {p: sum(r.path == p for r in res)
+                      for p in ("fast", "full", "batch", "super")},
+           "counters": dict(s.counters), "ring": s.chi2_history(),
+           "final_chi2": s.chi2()}
+    if graphs:
+        out["graph_use"] = graph_use(s, f"aot-{mode}", prep)
+    return out
+
+
+def aot_window(cfg, deferred: bool, mode: str, graphs: bool) -> dict:
+    """Phase 13: the replay again up to the end of AOT_WINDOW (the whole
+    replay for supersteps) with the profiler and the sync counter on over
+    the window: device busy ms, idle share, device events per dispatch,
+    synchronizing calls per dispatch."""
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+
+    # the previous replay's solver and graphs (its timers make a cycle;
+    # prepare_graphs frees them too, for the replays on graphs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = Replay(manhattan_world(AOT_POSES, seed=0), cfg, deferred=deferred,
+                 device="cuda")
+    rep.solver.graphs.enabled = graphs
+    if graphs:
+        prepare_graphs(rep.solver, AOT_POSES)
+    lo, hi = (0, AOT_POSES) if mode == "superstep" else AOT_WINDOW
+    for _ in range(lo):
+        rep.step()
+    timer = DispatchTimer(rep.solver, mode)
+    syncs = SyncCounter(rep.solver, mode)
+
+    def window():
+        for _ in range(hi - lo):
+            rep.step()
+        if hi == AOT_POSES:
+            rep.finish()
+    win = device_window(window)
+    syncs.restore()
+    win.update(steps=[lo, hi], dispatches=timer.count,
+               device_events_per_dispatch=win["device_events"]
+               / max(timer.count, 1),
+               sync_debug=syncs.summary())
+    return win
+
+
+# phase 13's replays: config name -> (deferred, dispatch mode, timed
+# replays of each kind); the short superstep replays run eager and on
+# graphs in turn (eager, graphs, graphs, eager, eager, graphs), so that a
+# drift of the host's speed within the call falls on both alike
+AOT_MODES = {"per-step": (False, "per-step", 1),
+             "superstep96": (True, "superstep", 3),
+             "panel-ring": (True, "superstep", 3),
+             "panel-bench": (True, "superstep", 3),
+             "bundled8": (True, "bundles", 1)}
+
+
+def run_aot(K, card: str) -> None:
+    """Phase 13: precompile at 3500 poses, then graphs against eager."""
+    from aprilsam_tpu_torch.solver import IncrementalSolver, SolverConfig
+    from aprilsam_tpu_torch.solver.batch import precompile_device_batch
+    from aprilsam_tpu_torch.solver.host_batch import precompile_expand
+    from aprilsam_tpu_torch.solver.panel_epoch import precompile_panel_epoch
+
+    head, _ring, _ = read_super_golden()
+    bhead, _ring, _ = read_super_golden(BUNDLED_GOLDEN)
+    phead, _ring, _ = read_super_golden(PANEL_GOLDEN)
+    configs = {"per-step": SolverConfig(wallclock_gate=False),
+               "superstep96": golden_config(head["bench"]),
+               "windowed": golden_config(head["windowed"]),
+               "bundled8": golden_config(bhead["bundled"]),
+               "panel-ring": golden_config(phead),
+               "panel-bench": golden_config(phead["bench"])}
+
+    def reserved():
+        return torch.cuda.memory_stats().get("reserved_bytes.all.current", 0)
+
+    ladders = {"dense-epoch": ("device", precompile_device_batch),
+               "panel-epoch": ("panel", precompile_panel_epoch),
+               "expand": ("auto", precompile_expand)}
+    total = {"signatures": 0, "graphs": 0, "seconds": 0.0,
+             "capture_s": 0.0}
+    for name in ["per-step", "superstep96", "windowed", "bundled8",
+                 *ladders]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name in ladders:
+            backend, fn = ladders[name]
+            s = IncrementalSolver(SolverConfig(wallclock_gate=False,
+                                               batch_backend=backend),
+                                  device="cuda")
+        else:
+            s = IncrementalSolver(configs[name], device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r0 = reserved()
+        t = time.perf_counter()
+        n = (ladders[name][1](s.ds, s.cfg, 3500, s.graphs) if name in ladders
+             else s.precompile(nnodes=3500))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        caps = {" ".join(map(str, k)): c.seconds * 1e3
+                for k, c in s.graphs.graphs.items()}
+        line = {"phase": "precompile", "config": name, "card": card,
+                "nnodes": 3500, "signatures": n,
+                "graphs": len(s.graphs.graphs), "seconds": secs,
+                "capture_s": sum(caps.values()) / 1e3,
+                "capture_ms_by_signature": caps,
+                "reserved_bytes_added": reserved() - r0,
+                "peak_reserved_bytes": torch.cuda.memory_stats().get(
+                    "reserved_bytes.all.peak", 0)}
+        print(json.dumps(line), flush=True)
+        if len(s.graphs.graphs) == 0:
+            raise AssertionError(f"precompile {name}: no graph captured")
+        for k in total:
+            total[k] += line[k]
+        del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "precompile", "config": "all",
+                      "card": card, **total}), flush=True)
+
+    for name, (deferred, mode, repeats) in AOT_MODES.items():
+        cfg = configs[name]
+        order = [False, True, True, False, False, True][:2 * repeats]
+        runs = [aot_replay(K, cfg, deferred, mode, g) for g in order]
+        eager = [r for r in runs if not r["graphs"]]
+        graph = [r for r in runs if r["graphs"]]
+        windows = {g: aot_window(cfg, deferred, mode, g)
+                   for g in (False, True)}
+        e0 = eager[0]
+        ring_ok = all(
+            r["ring"].shape == e0["ring"].shape and bool(np.all(
+                np.abs(r["ring"] - e0["ring"])
+                <= 1e-9 * np.abs(e0["ring"]) + 1e-12)) for r in runs)
+        line = {"phase": f"graphs-vs-eager-{name}", "card": card,
+                "graph": f"manhattan_world({AOT_POSES}, seed=0)",
+                "config": name, "ring_equal_1e-9": ring_ok}
+        for key, rs in (("eager", eager), ("graphs", graph)):
+            line[key] = {k: v for k, v in rs[0].items()
+                         if k not in ("ring", "by_shape", "graphs")}
+            line[key]["tri_inv_launches_by_shape"] = [
+                {"shape": [B, N, N], "dtype": dt, "launches": c}
+                for (B, N, dt), c in sorted(rs[0]["by_shape"].items())]
+            for k in ("poses_per_s", "host_ms_per_dispatch",
+                      "host_ms_per_epoch"):
+                line[key][k + "_runs"] = [r[k] for r in rs]
+                line[key][k] = median(r[k] for r in rs)
+            line[key]["window"] = windows[key == "graphs"]
+        print(json.dumps(line), flush=True)
+        bad = []
+        if cfg.policy_lag == 0:
+            # synchronous policy: the same trajectory to rounding
+            if not ring_ok:
+                bad.append("chi2 rings differ")
+            for r in runs[1:]:
+                if (r["census"], r["counters"], r["by_shape"]) != \
+                        (e0["census"], e0["counters"], e0["by_shape"]):
+                    bad.append(
+                        f"census, counters or K1 launches by shape differ "
+                        f"(graphs={r['graphs']}: {r['by_shape']}, eager "
+                        f"{e0['by_shape']})")
+        else:
+            # lagged: the policy reads the newest stats that are ready,
+            # which depends on timing (tests/test_torch_graphs_gpu.py holds
+            # the two to each other with the device waited for)
+            off = [r["final_chi2"] for r in runs
+                   if not abs(r["final_chi2"] - e0["final_chi2"]) < CHI2_BAND]
+            if off:
+                bad.append(f"final chi2 {off} against "
+                           f"{e0['final_chi2']!r} eager")
+        if mode != "per-step":
+            for g, win in windows.items():
+                if win["sync_debug"]["syncs"]:
+                    bad.append(f"synchronizing calls in {mode} dispatches "
+                               f"(graphs={g}): {win['sync_debug']['sites']}")
+        if bad:
+            raise AssertionError(f"graphs vs eager, {name}: "
+                                 + "; ".join(bad))
+
+
+def run_float32(K, card: str) -> dict:
+    """Phase 14: the per-step replay in float32 on graphs against the JAX
+    package's float32 golden.  Recorded, not held to: the first step whose
+    path differs and the first whose chi2 differs by more than relative
+    1e-4 (absolute 1e-6 near zero).  Raises on a non-finite chi2 or where
+    K1 did not launch once per full-path dispatch.  Returns K1's launches
+    by shape."""
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.replay import Replay
+    from aprilsam_tpu_torch.solver import SolverConfig
+
+    gold_paths, gold = read_golden(F32_GOLDEN)
+    n = len(gold_paths)
+    rep = Replay(manhattan_world(n, seed=0), SolverConfig(
+        wallclock_gate=False, dtype=np.float32), device="cuda")
+    if rep.solver.ds.state.dtype != torch.float32:
+        raise AssertionError("the float32 replay runs in float32")
+    prepared = prepare_graphs(rep.solver, n)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = [rep.step() for _ in range(n)]
+    rep.finish()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hist = rep.solver.chi2_history()
+    paths = [r.path for r in res]
+    by_shape = dict(K.launches_by_shape)
+    diff_path = [k for k in range(n) if paths[k] != gold_paths[k]]
+    off = np.abs(hist - gold) > 1e-4 * np.abs(gold) + 1e-6
+    diff_chi2 = np.nonzero(off)[0]
+    first = int(diff_path[0]) if diff_path else n
+    # relative error where the golden chi2 is above rounding level (the
+    # first steps' ~1e-14 in float32)
+    big = np.abs(gold) > 1e-6
+    rel = np.where(big, np.abs(hist - gold) / np.where(big, np.abs(gold),
+                                                       1.0), 0.0)
+    c = rep.solver.counters
+    print(json.dumps({
+        "phase": "float32", "card": card,
+        "graph": f"manhattan_world({n}, seed=0)", "dtype": "float32",
+        "golden": os.path.relpath(F32_GOLDEN, REPO), "seconds": secs,
+        "poses_per_s": n / secs,
+        "first_path_divergence": int(diff_path[0]) if diff_path else None,
+        "path_mismatches": len(diff_path),
+        "first_chi2_divergence_1e-4": (int(diff_chi2[0]) if len(diff_chi2)
+                                       else None),
+        "chi2_mismatches_1e-4": int(len(diff_chi2)),
+        "max_rel_chi2_err_before_path_divergence":
+            float(np.max(rel[:first])) if first else None,
+        "final_chi2": float(hist[-1]), "golden_final_chi2": float(gold[-1]),
+        "census": {p: paths.count(p) for p in ("fast", "full", "batch")},
+        "golden_census": {p: gold_paths.count(p)
+                          for p in ("fast", "full", "batch")},
+        "tri_inv_launches": K.launches,
+        "tri_inv_launches_by_shape": [
+            {"shape": [B, N, N], "dtype": dt, "launches": k}
+            for (B, N, dt), k in sorted(by_shape.items())],
+        "graphs": graph_use(rep.solver, "float32", prepared)}), flush=True)
+    if not np.all(np.isfinite(hist)) or len(hist) != n:
+        raise AssertionError(f"float32: {len(hist)} chi2 entries, finite "
+                             f"{bool(np.all(np.isfinite(hist)))}")
+    if K.launches != c["full"] or sum(by_shape.values()) != K.launches:
+        raise AssertionError(f"float32: tri_inv launched {K.launches} times "
+                             f"for {c['full']} full-path dispatches")
+    return by_shape
 
 
 def epochs_of(counters: dict) -> dict:
@@ -676,6 +1104,7 @@ def run_superstep(K, card: str, name: str, entry: dict,
     loaded = manhattan_world(3500, seed=0)
     rep = Replay(loaded, golden_config(entry), deferred=True, device="cuda")
     solver = rep.solver
+    prepared = prepare_graphs(solver)
     syncs = SyncCounter(solver)
     K.reset_launches()
     torch.cuda.synchronize()
@@ -698,7 +1127,8 @@ def run_superstep(K, card: str, name: str, entry: dict,
         "sync_debug": syncs.summary(), "tri_inv_launches": launches,
         "tri_inv_launches_by_shape": [
             {"shape": [B, N, N], "dtype": dt, "launches": n}
-            for (B, N, dt), n in sorted(by_shape.items())]}
+            for (B, N, dt), n in sorted(by_shape.items())],
+        "graphs": graph_use(solver, f"superstep-{name}", prepared)}
     bad = []
     if ring is not None:
         hist = solver.chi2_history()
@@ -778,7 +1208,8 @@ def run_device_epochs(K, card: str) -> dict:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 s.ds, _sym, _info, _b = run_batch_epoch(
-                    s.ds, s.cfg, n, *tables, log_mode=2, lazy=True)
+                    s.ds, s.cfg, n, *tables, log_mode=2, lazy=True,
+                    graphs=s.graphs)
                 enqueue.append((time.perf_counter() - t0) * 1e3)
                 torch.cuda.synchronize()
         return (s, info, snap, by_shape, median(times[1:]), first,
@@ -850,7 +1281,8 @@ def run_bundled(K, card: str, name: str, entry: dict, poses: int) -> dict:
     loaded = manhattan_world(poses, seed=0)
     rep = Replay(loaded, golden_config(entry), deferred=True, device="cuda")
     solver = rep.solver
-    syncs = SyncCounter(solver, bundles=True)
+    prepared = prepare_graphs(solver, poses)
+    syncs = SyncCounter(solver, "bundles")
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -875,7 +1307,8 @@ def run_bundled(K, card: str, name: str, entry: dict, poses: int) -> dict:
         "sync_debug": syncs.summary(), "tri_inv_launches": launches,
         "tri_inv_launches_by_shape": [
             {"shape": [B, N, N], "dtype": dt, "launches": k}
-            for (B, N, dt), k in sorted(by_shape.items())]}), flush=True)
+            for (B, N, dt), k in sorted(by_shape.items())],
+        "graphs": graph_use(solver, name, prepared)}), flush=True)
     bad = []
     if not abs(final - want) < CHI2_BAND:
         bad.append(f"final chi2 {final!r} vs {want!r}")
@@ -932,6 +1365,7 @@ def main() -> int:
     from aprilsam_tpu_torch.utils import setup_precision
 
     # 1. device
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1005,7 +1439,14 @@ def main() -> int:
             ckpt)
     phase("distributed", run_distributed, smi)
 
-    # 13. the kernels line, the card, the result; K1's share of each replay
+    # 13-14. the ahead-of-time surface: precompile, graphs against eager;
+    # float32 on graphs
+    phase("aot", run_aot, K, smi)
+    paths["float32"] = phase("float32", run_float32, K, smi)
+    print(json.dumps({"phase_seconds": "all",
+                      "seconds": time.perf_counter() - t_start}), flush=True)
+
+    # 15. the kernels line, the card, the result; K1's share of each replay
     # is its launches at each shape times that shape's time from phase 3
     for counts in paths.values():
         for key in counts:

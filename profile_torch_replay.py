@@ -18,14 +18,16 @@ per-stage timing on), the smoke run's main path:
 
 Then the throughput replay in the bench's config (superstep_size=96 with
 the bench's union buckets, policy_lag=3, policy_poll=2, log_chi2 off),
-twice, one "superstep" line.  First with the profiler off and the host
-clock around each stage ("timed": host milliseconds in the superstep
-dispatches, and within them in plan_step (the union's planning),
-plan_tensors (the upload), _frontal_core (gather, measurement rows, QR,
+twice, one "superstep" line.  First with the profiler off, graphs off
+(solver.graphs.enabled = False: every dispatch runs its body eagerly) and
+the host clock around each stage ("timed": host milliseconds in the superstep dispatches,
+and within them in plan_step (the union's planning), step_inputs (the
+padding of the plan), _frontal_core (gather, measurement rows, QR,
 writeback), torch.linalg.qr and _global_sweep; and in batch epochs).  Then
-profiled whole: wall seconds and poses/s, device busy milliseconds, the
-idle share, device events per superstep, and the ten largest device
-operations.
+profiled whole, on CUDA graphs (the solver's default; each signature is
+captured on its first dispatch): wall seconds and poses/s, device busy
+milliseconds, the idle share, device events per superstep, and the ten
+largest device operations.  The per-step replay runs on graphs too.
 Needs a card; exits 1 without one.
 """
 
@@ -81,8 +83,9 @@ def profile_superstep() -> None:
                        superstep_buckets=(64, 128, 256, 384, 640, 1024))
     graph = manhattan_world(POSES, seed=0)
 
-    def replay():
+    def replay(graphs=True):
         rep = Replay(graph, cfg, deferred=True, device="cuda")
+        rep.solver.graphs.enabled = graphs
         torch.cuda.synchronize()
         t = time.perf_counter()
         rep.run()
@@ -102,7 +105,7 @@ def profile_superstep() -> None:
                 host_ms[name] += (time.perf_counter() - t) * 1e3
         return run
 
-    stages = [(incremental, "plan_step"), (incremental, "plan_tensors"),
+    stages = [(incremental, "plan_step"), (incremental, "step_inputs"),
               (incremental, "_frontal_core"), (incremental, "_global_sweep"),
               (incremental.IncrementalSolver, "_dispatch_superstep"),
               (incremental.IncrementalSolver, "_run_batch"),
@@ -111,7 +114,7 @@ def profile_superstep() -> None:
     for obj, name, fn in saved:
         setattr(obj, name, timed(name.lstrip("_"), fn))
     try:
-        solver, secs = replay()
+        solver, secs = replay(graphs=False)
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)

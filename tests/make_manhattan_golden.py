@@ -11,6 +11,12 @@ one line per step: ``step path chi2``, where chi2 is the solver's per-step
     JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py \
         --out aprilsam_tpu_torch/golden/manhattan3500_seed0.txt
 
+``--dtype float32`` runs the per-step replay with the solver state in
+float32 (``SolverConfig(dtype=np.float32)``, the CLI's default on the card):
+
+    JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --dtype float32 \
+        --out aprilsam_tpu_torch/golden/manhattan3500_seed0_f32.txt
+
 With ``--superstep S`` it writes the superstep golden instead: the replay
 in deferred mode at ``superstep_size=S``, ``policy_lag=0`` and
 ``log_chi2=True`` with the bench ladder of union buckets, one line per
@@ -59,6 +65,7 @@ import time
 from collections import Counter
 
 import jax
+import numpy as np
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
@@ -199,16 +206,19 @@ def write_bundled(args) -> None:
 
 def write_per_step(args) -> None:
     g = manhattan_world(args.poses, seed=args.seed)
-    rep = Replay(g, SolverConfig(wallclock_gate=False))
+    rep = Replay(g, SolverConfig(wallclock_gate=False,
+                                 dtype=np.dtype(args.dtype)))
     t0 = time.perf_counter()
     res = rep.run()
     secs = time.perf_counter() - t0
     hist = rep.solver.chi2_history()
     assert len(hist) == len(res), (len(hist), len(res))
     with open(args.out, "w") as f:
+        dt = "" if args.dtype == "float64" else f", dtype=np.{args.dtype}"
         f.write(f"# manhattan_world({args.poses}, seed={args.seed}), JAX "
-                "package on the CPU, float64, SolverConfig(wallclock_gate="
-                "False); columns: step path chi2_history\n")
+                f"package on the CPU, {args.dtype}, SolverConfig("
+                f"wallclock_gate=False{dt}); columns: step path "
+                "chi2_history\n")
         for r, c in zip(res, hist):
             f.write(f"{r.step} {r.path} {float(c)!r}\n")
     census = {p: sum(r.path == p for r in res) for p in ("fast", "full", "batch")}
@@ -229,6 +239,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bundled", type=int, default=0,
                     help="write the bundled per-step golden at this "
                          "bundle_size")
+    ap.add_argument("--dtype", default="float64",
+                    choices=["float64", "float32"],
+                    help="solver dtype of the per-step golden")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     count_epochs()

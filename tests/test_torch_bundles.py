@@ -5,9 +5,8 @@ The analogues of tests/test_incremental.py:221-560: the same graphs and
 configs go through the port and, where the outcome is deterministic,
 through the JAX package.  With nthreshold = 10**9 no batch epoch fires
 after the first, so states and every chi2_history() entry are held to
-1e-10 against the JAX package (the port's frontal QR runs on the step's m
-rows where the JAX package pads to a bucket, so the two agree to
-rounding), and to 1e-12 between the port's own bundled and per-step runs,
+1e-10 against the JAX package (the two factor the same padded fronts
+through different LAPACK builds, so they agree to rounding), and to 1e-12 between the port's own bundled and per-step runs,
 as the JAX package holds its own.
 """
 

@@ -44,6 +44,7 @@ from aprilsam_tpu_torch.solver.host_batch import host_batch_epoch
 from aprilsam_tpu_torch.solver.incremental import SeedSpec
 from aprilsam_tpu_torch.solver.ingest import ingest_graph
 from aprilsam_tpu_torch.solver.state import init_device_state
+from aprilsam_tpu_torch.utils import GraphCache
 
 torch.set_num_threads(1)
 
@@ -52,6 +53,8 @@ SMALL = dict(node_capacity=512, factor_capacity=2048, row_block_capacity=64,
 PANEL700 = dict(node_capacity=1024, factor_capacity=2048,
                 row_block_capacity=96, panel_nodes=128)
 W_ODO = np.diag([100.0, 100.0, (180.0 / np.pi) ** 2])
+# the epochs' dispatches on the CPU (always eager)
+EAGER = GraphCache(torch.device("cpu"))
 
 
 def _tables(g):
@@ -94,7 +97,8 @@ def test_dense_epoch_matches_jax(graph200, gn_iters, log_mode):
                          log_ptr=jnp.int32(3))
 
     ds_t, sym_t, info_t, backend = run_batch_epoch(
-        ds_t, cfg_t, g_t.nnodes, *_tables(g_t), log_mode=log_mode)
+        ds_t, cfg_t, g_t.nnodes, *_tables(g_t), log_mode=log_mode,
+        graphs=EAGER)
     ds_j, sym_j, info_j = j_run_batch_epoch(
         ds_j, cfg_j, g_j.nnodes, *_tables(g_j), log_mode=log_mode)
     assert backend == "dense"
@@ -127,12 +131,13 @@ def epochs700():
     cfg_t = SolverConfig(**PANEL700, batch_backend="panel")
     cfg_j = JConfig(**PANEL700, batch_backend="panel")
     panel = run_batch_epoch(port_state(cfg_t, g_t), cfg_t, g_t.nnodes,
-                            *_tables(g_t))
+                            *_tables(g_t), graphs=EAGER)
     jax = j_run_batch_epoch(jax_state(cfg_j, g_j), cfg_j, g_j.nnodes,
                             *_tables(g_j))
     nf = g_t.nfactors
     host = host_batch_epoch(port_state(cfg_t, g_t), cfg_t, g_t.nnodes,
-                            *_tables(g_t), g_t.fz[:nf], g_t.fW[:nf])
+                            *_tables(g_t), g_t.fz[:nf], g_t.fW[:nf],
+                            graphs=EAGER)
     return panel, jax, host
 
 
@@ -187,7 +192,8 @@ def test_panel_caps_grade_escalation(monkeypatch, fits, backend):
     g = t_manhattan(300, seed=1)
     cfg = SolverConfig(**PANEL700, batch_backend="panel")
     _ds, _sym, info, ran = run_batch_epoch(port_state(cfg, g), cfg,
-                                           g.nnodes, *_tables(g))
+                                           g.nnodes, *_tables(g),
+                                           graphs=EAGER)
     assert calls == [0, 1]
     assert ran == backend
     assert info.spd and np.isfinite(info.chi2)
@@ -316,7 +322,7 @@ def test_lagged_device_epoch_is_lazy():
     cfg = SolverConfig(**dict(SMALL, batch_backend="panel", policy_lag=2))
     ds = port_state(cfg, g)
     _ds, _sym, info, _b = run_batch_epoch(ds, cfg, g.nnodes, *_tables(g),
-                                          lazy=True)
+                                          lazy=True, graphs=EAGER)
     assert isinstance(info.chi2, torch.Tensor) and info.chi2.dim() == 0
     assert isinstance(info.spd, torch.Tensor) and bool(info.spd)
     s = IncrementalSolver(dataclasses.replace(cfg), device="cpu")

@@ -31,6 +31,7 @@ from aprilsam_tpu_torch.solver.host_batch import host_batch_epoch as t_epoch
 from aprilsam_tpu_torch.solver.ingest import ingest_graph as t_ingest
 from aprilsam_tpu_torch.solver.state import (init_device_state as t_init_state,
                                              state_to_numpy)
+from aprilsam_tpu_torch.utils import GraphCache
 
 torch.set_num_threads(1)
 
@@ -153,7 +154,8 @@ def test_host_batch_epoch_matches_jax():
     args = (g.nnodes, g.ftype[:nf], g.fnodes[:nf], g.fz[:nf], g.fW[:nf])
     for log_mode in (0, 0, 1, 2):
         ds_j, sym_j, info_j = j_epoch(ds_j, cfg_j, *args, log_mode=log_mode)
-        ds_t, sym_t, info_t = t_epoch(ds_t, cfg_t, *args, log_mode=log_mode)
+        ds_t, sym_t, info_t = t_epoch(ds_t, cfg_t, *args, log_mode=log_mode,
+                                      graphs=GraphCache(ds_t.device))
         assert info_t.spd == info_j.spd
         np.testing.assert_allclose(info_t.chi2, info_j.chi2, rtol=1e-12)
         hj, ht = _jax_fields(ds_j), state_to_numpy(ds_t)

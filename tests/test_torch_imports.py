@@ -1,5 +1,6 @@
-"""The port stands alone: no module of aprilsam_tpu_torch, and neither
-chip_smoke.py nor profile_torch_replay.py, imports JAX or the JAX package;
+"""The port stands alone: no module of aprilsam_tpu_torch, and none of the
+chip scripts (chip_smoke.py, profile_torch_replay.py,
+profile_panel_epochs.py), imports JAX or the JAX package;
 its entry points run on the card unless asked for the CPU; the throughput
 settings, bundles and device batch epochs run on the CPU."""
 
@@ -44,7 +45,8 @@ def test_port_has_the_slice_modules():
     mods = set(_port_modules())
     for m in ("geometry", "graph", "io.g2o", "io.stype", "datasets",
               "solver.config",
-              "utils.timeprofile", "native", "solver.symbolic", "factors",
+              "utils.timeprofile", "utils.cache", "utils.build", "native",
+              "solver.symbolic", "factors",
               "kernels.linalg3", "solver.state", "solver.ingest",
               "solver.batch", "solver.host_batch", "kernels.tri_inv",
               "kernels.assembly", "solver.panel_epoch",
@@ -57,7 +59,7 @@ def test_port_has_the_slice_modules():
 
 
 def test_no_jax_at_runtime():
-    """Import every port module and the two chip scripts in a fresh
+    """Import every port module and the chip scripts in a fresh
     interpreter: neither jax nor any module of aprilsam_tpu may be loaded
     (the prefix aprilsam_tpu also matches aprilsam_tpu_torch, so names are
     compared exactly)."""
@@ -65,7 +67,8 @@ def test_no_jax_at_runtime():
         import importlib, importlib.util, os, sys
         for m in {_port_modules()!r}:
             importlib.import_module(m)
-        for script in ("chip_smoke", "profile_torch_replay"):
+        for script in ("chip_smoke", "profile_torch_replay",
+                       "profile_panel_epochs"):
             spec = importlib.util.spec_from_file_location(
                 script, os.path.join({REPO!r}, script + ".py"))
             spec.loader.exec_module(importlib.util.module_from_spec(spec))

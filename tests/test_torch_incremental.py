@@ -1,10 +1,9 @@
 """The port's synchronous incremental engine against the algebra and
 against the JAX package, on the CPU in float64.
 
-Tolerances: the port runs the same algebra as the JAX package, but its
-frontal QR works on the step's m affected rows where the JAX package pads
-to a bucket, and LAPACK blocks the two factorizations differently, so
-values agree to rounding, not bit for bit.  Per-step chi2 is held to
+Tolerances: the port runs the same algebra as the JAX package on the same
+padded shapes, but through another LAPACK build (torch's, where the JAX
+package runs XLA's), so values agree to rounding, not bit for bit.  Per-step chi2 is held to
 relative 1e-9; chi2 values at rounding level of zero (the first steps of a
 replay, ~1e-28) are held to an absolute 1e-20 instead.  StepResult.chi2 is
 held to relative 1e-6 because the JAX package reads it back through a

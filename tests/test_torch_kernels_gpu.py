@@ -139,6 +139,7 @@ def test_device_epochs_on_the_card_match_the_host_epoch(backend, k1):
     from aprilsam_tpu_torch.solver.host_batch import host_batch_epoch
     from aprilsam_tpu_torch.solver.ingest import ingest_graph
     from aprilsam_tpu_torch.solver.state import init_device_state
+    from aprilsam_tpu_torch.utils import GraphCache
 
     g = manhattan_world(700, seed=0)
     nf = g.nfactors
@@ -151,13 +152,15 @@ def test_device_epochs_on_the_card_match_the_host_epoch(backend, k1):
         return ingest_graph(init_device_state(cfg, device), g, cfg, 0, 0)
 
     before = K.launches
-    ds, sym, info, ran = run_batch_epoch(state("cuda"), cfg, g.nnodes,
-                                         *tables)
+    ds, sym, info, ran = run_batch_epoch(
+        state("cuda"), cfg, g.nnodes, *tables,
+        graphs=GraphCache(torch.device("cuda"), enabled=False))
     torch.cuda.synchronize()
     assert ran == ("panel" if backend == "panel" else "dense")
     assert K.launches == before + k1
-    ds_h, sym_h, info_h = host_batch_epoch(state("cpu"), cfg, g.nnodes,
-                                           *tables, g.fz[:nf], g.fW[:nf])
+    ds_h, sym_h, info_h = host_batch_epoch(
+        state("cpu"), cfg, g.nnodes, *tables, g.fz[:nf], g.fW[:nf],
+        graphs=GraphCache(torch.device("cpu")))
     np.testing.assert_array_equal(sym.order, sym_h.order)
     assert info.spd and info_h.spd
     assert abs(info.chi2 - info_h.chi2) < 1e-9 * abs(info_h.chi2)

@@ -5,8 +5,8 @@ At policy_lag=0 a superstep replay is deterministic, and the port takes the
 JAX package's trajectory: metric-ring entries (one per superstep and per
 batch epoch) within relative 1e-9 (values at rounding level of zero held to
 an absolute 1e-20), states within 1e-9, the counters equal.  The two
-differ only in rounding: the port's joint QR works on the union's m rows
-where the JAX package pads to a bucket."""
+differ only in rounding: both factor the union front padded to the same
+bucket, through different LAPACK builds."""
 
 import math
 

@@ -72,13 +72,21 @@ def small_dp_solve(mesh: Mesh, n: int, seed: int, dtype, tikhonov: float):
 
 
 def _max_diff(a, b) -> float:
-    """Largest difference of two state tables, angles mod 2pi."""
+    """Largest difference of two state tables entry by entry, over all
+    three columns, angles as they are: the JAX dry run's figure
+    (``__graft_entry__.py:132,146``)."""
+    return float(np.max(np.abs(a - b)))
+
+
+def _max_diff_mod2pi(a, b) -> float:
+    """The same with the angle differences taken mod 2pi (printed beside
+    it: two angles near +-pi may lie 2pi apart)."""
     d = a - b
     d[:, 2] = np_mod2pi(d[:, 2])
     return float(np.max(np.abs(d)))
 
 
-def dryrun_multichip(mesh: Mesh) -> dict:
+def dryrun_multichip(mesh: Mesh, states: dict = None) -> dict:
     """Run one step of both multi-rank strategies over the mesh, in
     float32, as the JAX package's dry run does:
 
@@ -89,7 +97,9 @@ def dryrun_multichip(mesh: Mesh) -> dict:
          blocks (several block rows per rank), within 5e-2 of each other;
       3. the same pair at 512*D poses with 128-scalar blocks.
 
-    Raises AssertionError on a failed check; returns what it measured."""
+    Raises AssertionError on a failed check; returns what it measured.
+    Where `states` is a dict, the states of step 3 go there by separator
+    mode ("replicated", "distributed")."""
     D = mesh.size
     x, _y, _L = small_dp_solve(mesh, 16, seed=1, dtype=torch.float32,
                                tikhonov=1e-2)
@@ -107,6 +117,7 @@ def dryrun_multichip(mesh: Mesh) -> dict:
         s_dist = schur_solve(mesh, g, part, gn_iters=1, dtype=np.float32,
                              sep_dist=True, sep_block=8)
         out["small_sep_diff"] = _max_diff(s_dist, s_rep)
+        out["small_sep_diff_mod2pi"] = _max_diff_mod2pi(s_dist, s_rep)
         if not (np.all(np.isfinite(s_dist))
                 and out["small_sep_diff"] < 5e-2):
             raise AssertionError(f"separator modes differ by "
@@ -121,7 +132,10 @@ def dryrun_multichip(mesh: Mesh) -> dict:
     sd = schur_solve(mesh, g2, part2, gn_iters=1, dtype=np.float32,
                      sep_dist=True, sep_block=128)
     out.update(large_poses=g2.nnodes, large_ns=part2.ns,
-               large_sep_diff=_max_diff(sd, sr))
+               large_sep_diff=_max_diff(sd, sr),
+               large_sep_diff_mod2pi=_max_diff_mod2pi(sd, sr))
+    if states is not None:
+        states.update(replicated=sr, distributed=sd)
     if not (np.all(np.isfinite(sr)) and np.all(np.isfinite(sd))
             and out["large_sep_diff"] < 5e-2):
         raise AssertionError(f"separator modes differ by "

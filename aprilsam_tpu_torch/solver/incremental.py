@@ -966,6 +966,10 @@ class IncrementalSolver:
                          "superstep": 0, "sup_overflow": 0, "sup_m_max": 0,
                          "sup_m_sum": 0, "sup_nosweep": 0, "sweep_win": 0,
                          "sweep_flush": 0}
+        # capacity growths: the step that caused each, the capacities after
+        # it, its host ms and, on the card, the memory reserved before and
+        # after it
+        self.growths: list = []
         self._batch_serial = 0
         self._pending: deque = deque()
         self._due_since_poll = 0
@@ -1082,6 +1086,9 @@ class IncrementalSolver:
 
         # buffered and queued steps land in the old-capacity state first
         self._dispatch_queue()
+        t0 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        reserved = torch.cuda.memory_reserved(self.device) if cuda else 0
         old = state_to_numpy(self.ds)
         old_ncap = cfg.node_capacity
         self.cfg = dataclasses.replace(cfg, node_capacity=ncap,
@@ -1097,9 +1104,20 @@ class IncrementalSolver:
         # identity position map beyond the old capacity
         h["pos"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
         h["order"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
-        self.ds = state_from_numpy(h, self.device)
-        # the graphs read the old state's tensors
+        # the graphs read the old state's tensors; what the old state and
+        # its graphs held is sized for the old capacity: give it back
+        self.ds = None
         self.graphs.bump()
+        if cuda:
+            torch.cuda.empty_cache()
+        self.ds = state_from_numpy(h, self.device)
+        self.growths.append({
+            "step": g.nnodes - 1, "node_capacity": ncap,
+            "factor_capacity": fcap,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "reserved_before": reserved,
+            "reserved_after": (torch.cuda.memory_reserved(self.device)
+                               if cuda else 0)})
 
         # the native planner mirror is capacity-sized: rebuild it lazily
         sym = self.sym

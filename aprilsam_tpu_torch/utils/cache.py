@@ -29,7 +29,10 @@ Rules the cached graphs keep:
     own, or precompile's dead one;
   * a reallocation of the solver state drops every graph: the solver bumps
     `generation` where it reallocates, and run() compares the addresses of
-    the state's tensors with those the graphs were captured on;
+    the state's tensors with those the graphs were captured on; each
+    generation captures into a pool of its own, so that a dropped
+    generation's pool is freed whole (a capacity growth then empties the
+    allocator's cache) and never reused at shapes it was not sized for;
   * a capture or a replay that fails raises.  Nothing falls back to the
     eager path; eager is the caller's choice (enabled=False), or the CPU.
 """
@@ -82,6 +85,8 @@ class GraphCache:
     calls: Counter = field(default_factory=Counter)
     replayed: Counter = field(default_factory=Counter)
     captures: int = 0
+    # graphs captured and their capture seconds, by generation
+    by_generation: Dict[int, Dict[str, float]] = field(default_factory=dict)
     # tensors that graphs read and write across replays, by name (kept as
     # long as the graphs captured on them)
     buffers: Dict[Hashable, object] = field(default_factory=dict)
@@ -99,6 +104,7 @@ class GraphCache:
         self.graphs.clear()
         self.buffers.clear()
         self._addresses = None
+        self._pool = None
 
     def _check_state(self, ds) -> None:
         addresses = tuple(getattr(ds, f.name).data_ptr() for f in fields(ds)
@@ -133,9 +139,10 @@ class GraphCache:
             self.replayed[key[0]] += 1
             return cap.out
 
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
         cur = torch.cuda.current_stream(self.device)
         s = self._stream
         s.wait_stream(cur)
@@ -158,9 +165,13 @@ class GraphCache:
         finally:
             tri_inv.capture_record = None
         cur.wait_stream(s)
-        self.graphs[key] = Captured(graph, inputs, out, k1,
-                                    time.perf_counter() - t0)
+        secs = time.perf_counter() - t0
+        self.graphs[key] = Captured(graph, inputs, out, k1, secs)
         self.captures += 1
+        gen = self.by_generation.setdefault(
+            self.generation, {"captures": 0, "seconds": 0.0})
+        gen["captures"] += 1
+        gen["seconds"] += secs
         return out
 
     def workspace(self, key: Hashable, make: Callable[[], object]) -> object:

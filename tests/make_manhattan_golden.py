@@ -52,6 +52,26 @@ whose outcome moves the final chi2 by several units at a thousand poses.
     JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --bundled 8 \
         --out aprilsam_tpu_torch/golden/manhattan3500_seed0_bundled8.txt
 
+With ``--large`` it writes the large-N golden: ``bench_large_inc.py``'s
+graph (``manhattan_world(poses, seed=0, closure_prob=0.02, block=25,
+max_closures_per_pose=1)``, 20 000 poses by default here) and config
+(capacity from ``--start_capacity``, doubling on demand; ``panel_nodes``
+256, S = 64, union buckets up to 1024, windowed sweep 16/16) with panel
+epochs, at ``policy_lag=0``, ``policy_poll=1`` and ``log_chi2=True``: one
+line per metric-ring entry, and a header holding that config, its
+counters, its epochs by backend and its capacity growths (the step of
+each and the capacities after it), and the same of the script's lagged
+config (``policy_lag=3``, ``policy_poll=2``, each superstep dispatch
+waited for, so that the policy always reads the newest due stats) with
+its final chi2.  A checkpoint's chi2 read dispatches the buffered
+superstep, so the reads are part of the trajectory: the ring replay reads
+chi2 once, at the end (the script's ``--checkpoints 1``), the lagged one
+every ``poses // 10`` steps as the script does by default; the header
+records each read.
+
+    JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --large \
+        --out aprilsam_tpu_torch/golden/manhattan20000_large.txt
+
 ``chip_smoke.py`` holds the port's replays on the card against these files.
 """
 
@@ -184,6 +204,112 @@ def write_superstep(args) -> None:
             f.write(f"{i} {float(c)!r}\n")
 
 
+def large_configs(start: int) -> dict:
+    """The large-N replays of the golden, by name: ``bench_large_inc.py``'s
+    config (keyword arguments of SolverConfig) with panel epochs, at lag 0
+    with the metric ring (``ring``) and at the script's lag (``lagged``)."""
+    lagged = dict(node_capacity=start, factor_capacity=2 * start,
+                  row_block_capacity=96, panel_nodes=256,
+                  wallclock_gate=False, policy_lag=3, policy_poll=2,
+                  superstep_size=64, superstep_buckets=BENCH_BUCKETS,
+                  sweep_window_panels=16, sweep_full_every=16,
+                  log_chi2=False, batch_backend="panel")
+    return {"ring": dict(lagged, policy_lag=0, policy_poll=1,
+                         log_chi2=True),
+            "lagged": lagged}
+
+
+GROWTHS = []
+
+
+def record_growths() -> None:
+    """Record every capacity growth (the step that caused it and the
+    capacities after it) by wrapping the JAX solver's growth check for the
+    life of this process."""
+    from aprilsam_tpu.solver.incremental import IncrementalSolver
+
+    orig = IncrementalSolver._maybe_grow_capacity
+
+    def recorded(self, g):
+        before = (self.cfg.node_capacity, self.cfg.factor_capacity)
+        orig(self, g)
+        after = (self.cfg.node_capacity, self.cfg.factor_capacity)
+        if after != before:
+            GROWTHS.append({"step": int(g.nnodes) - 1,
+                            "node_capacity": after[0],
+                            "factor_capacity": after[1]})
+
+    IncrementalSolver._maybe_grow_capacity = recorded
+
+
+def _large_replay(g, kw: dict, checkpoints: int, wait: bool = False):
+    """One large-N replay with the script's chi2 reads every
+    ``nnodes // checkpoints`` steps (with `wait`, every superstep dispatch
+    is waited for); returns (solver, seconds, epochs by backend, growths,
+    the checkpoints' [step, chi2])."""
+    rep = Replay(g, SolverConfig(dtype=np.float64, **kw),
+                 batch_update_only=False, deferred=True)
+    if wait:
+        solver = rep.solver
+        dispatch = solver._dispatch_superstep
+
+        def waited():
+            dispatch()
+            jax.block_until_ready(solver.ds)
+        solver._dispatch_superstep = waited
+    EPOCHS.clear()
+    GROWTHS.clear()
+    ck = max(1, g.nnodes // checkpoints)
+    marks = []
+    t0 = time.perf_counter()
+    n = 0
+    while rep.step() is not None:
+        n += 1
+        if n % ck == 0:
+            # the script's checkpoint read, which dispatches the buffered
+            # superstep (part of the trajectory)
+            marks.append([n, rep.solver.chi2()])
+    rep.solver.flush(rep.graph)
+    jax.block_until_ready(rep.solver.ds)
+    secs = time.perf_counter() - t0
+    epochs = {k: EPOCHS[k] for k in ("panel", "dense", "host")}
+    return rep.solver, secs, epochs, list(GROWTHS), marks
+
+
+def write_large(args) -> None:
+    g = manhattan_world(args.poses, seed=0, closure_prob=0.02, block=25,
+                        max_closures_per_pose=1)
+    record_growths()
+    cfgs = large_configs(args.start_capacity)
+    head = {"graph": {"nnodes": int(g.nnodes), "nfactors": int(g.nfactors)}}
+    for name, kw in cfgs.items():
+        lagged = name == "lagged"
+        s, secs, epochs, growths, marks = _large_replay(
+            g, kw, 10 if lagged else 1, wait=lagged)
+        head[name] = {"config": kw, "final_chi2": s.chi2(),
+                      "counters": dict(s.counters), "epochs": epochs,
+                      "growths": growths, "checkpoints": marks,
+                      "node_capacity": s.cfg.node_capacity,
+                      "factor_capacity": s.cfg.factor_capacity,
+                      "seconds": secs}
+        if name == "ring":
+            hist = s.chi2_history()
+            head[name]["ring_entries"] = len(hist)
+        print(f"{name}: final chi2 {s.chi2()!r} in {secs:.1f} s, counters "
+              f"{s.counters}, epochs {epochs}, growths {growths}",
+              flush=True)
+    with open(args.out, "w") as f:
+        f.write(f"# manhattan_world({args.poses}, seed=0, closure_prob=0.02, "
+                "block=25, max_closures_per_pose=1), JAX package on the CPU, "
+                "float64, bench_large_inc.py's config with panel epochs, "
+                "Replay(deferred=True); columns: entry chi2_history (ring "
+                "config); header lines: # key json\n")
+        for key, val in head.items():
+            f.write(f"# {key} {json.dumps(val, sort_keys=True)}\n")
+        for i, c in enumerate(hist):
+            f.write(f"{i} {float(c)!r}\n")
+
+
 def write_bundled(args) -> None:
     g = manhattan_world(args.poses, seed=args.seed)
     head = {}
@@ -242,10 +368,19 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default="float64",
                     choices=["float64", "float32"],
                     help="solver dtype of the per-step golden")
+    ap.add_argument("--large", action="store_true",
+                    help="write the large-N golden (bench_large_inc.py's "
+                         "graph and config)")
+    ap.add_argument("--start_capacity", type=int, default=4096,
+                    help="initial node capacity of the large-N golden")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     count_epochs()
-    if args.bundled > 1:
+    if args.large:
+        if args.poses == 3500:
+            args.poses = 20000
+        write_large(args)
+    elif args.bundled > 1:
         write_bundled(args)
     elif args.superstep > 1:
         write_superstep(args)

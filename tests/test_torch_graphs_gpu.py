@@ -41,6 +41,14 @@ CONFIGS = {
                          policy_lag=1),
     "panel-epochs": dict(superstep_size=96, policy_lag=0,
                          batch_backend="panel"),
+    # the large-N replay's config scaled down (test_torch_large_inc.py):
+    # capacity 128 grows to 512 over these 500 poses
+    "large-growth": dict(node_capacity=128, factor_capacity=256,
+                         row_block_capacity=96, panel_nodes=32,
+                         superstep_size=64, policy_lag=0,
+                         superstep_buckets=(64, 128, 256, 384, 640, 1024),
+                         sweep_window_panels=16, sweep_full_every=16,
+                         batch_backend="panel"),
 }
 
 
@@ -132,3 +140,53 @@ def test_batch_solver_epochs_on_graphs(backend):
     np.testing.assert_allclose(out[True][1], out[False][1], rtol=1e-9,
                                atol=1e-9)
     assert sum(out[True][2].values()) > 0 and not out[False][2]
+
+
+def _large_growth(graphs: bool, **overrides):
+    """test_torch_large_inc.py's scaled-down large-N replay (600 poses from
+    node capacity 128, S = 64, window 16/16, panel epochs, lag 0) on the
+    card, from a collected allocator; returns (ring, solver, memory
+    reserved at its end)."""
+    import gc
+
+    from aprilsam_tpu_torch import large_inc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = large_inc.build_parser().parse_args([
+        "--poses", "600", "--start_capacity", "128", "--panel_nodes", "32",
+        "--dtype", "float64", "--batch_backend", "panel", "--checkpoints",
+        "1"])
+    rep = large_inc.make_replay(args, policy_lag=0, policy_poll=1,
+                                log_chi2=True, **overrides)
+    if not graphs:
+        rep.solver.graphs.enabled = False
+    large_inc.run_replay(rep, args, out=lambda m: None)
+    torch.cuda.synchronize()
+    return (rep.solver.chi2_history(), rep.solver,
+            torch.cuda.memory_reserved())
+
+
+@pytest.mark.gpu
+def test_capacity_growth_on_graphs():
+    """Growth under CUDA graphs: every growth drops the graphs (one
+    generation each) and gives their memory back, and the replay captures
+    again at the new capacity; the ring equals the eager replay's."""
+    _need_card()
+    h_e, s_e, _ = _large_growth(graphs=False)
+    del s_e
+    # one generation at the final capacity, for the memory it holds
+    _h, s_one, one_gen = _large_growth(graphs=True, node_capacity=1024,
+                                       factor_capacity=1024)
+    assert s_one.growths == [] and s_one.graphs.generation == 0
+    del s_one
+    h_g, s, end = _large_growth(graphs=True)
+    assert h_g.shape == h_e.shape
+    assert np.all(np.abs(h_g - h_e) <= 1e-12 * np.abs(h_e) + 1e-12)
+    caps = [g["node_capacity"] for g in s.growths]
+    assert s.cfg.node_capacity == 1024 and sorted(set(caps)) == [256, 512,
+                                                                  1024]
+    assert s.graphs.generation == len(s.growths)
+    assert sorted(s.graphs.by_generation) == list(range(len(s.growths) + 1))
+    assert s.graphs.replays > 0
+    assert end <= 1.5 * one_gen, (end, one_gen)

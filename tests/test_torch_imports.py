@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from aprilsam_tpu_torch import cli
+from aprilsam_tpu_torch import cli, large_inc
 from aprilsam_tpu_torch.datasets import manhattan_world
 from aprilsam_tpu_torch.io import save_graph_file
 from aprilsam_tpu_torch.replay import Replay
@@ -53,7 +53,8 @@ def test_port_has_the_slice_modules():
               "kernels.sweep", "solver.incremental", "replay", "cli",
               "checkpoint", "parallel", "parallel.dist", "parallel.pchol",
               "parallel.schur", "parallel.dryrun", "examples.tutorial",
-              "examples.graph_save_load", "examples.distributed_solve"):
+              "examples.graph_save_load", "examples.distributed_solve",
+              "large_inc"):
         assert f"aprilsam_tpu_torch.{m}" in mods, m
     assert os.path.exists(os.path.join(PKG, "csrc", "tri_inv.cu"))
 
@@ -102,7 +103,7 @@ def _tiny_graph():
 
 
 @pytest.mark.parametrize("entry", ["IncrementalSolver", "BatchSolver",
-                                   "Replay", "cli"])
+                                   "Replay", "cli", "large_inc"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """With no device argument the entry points take the card; where there
     is none they raise instead of running on the CPU."""
@@ -113,6 +114,9 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             return BatchSolver()
         if entry == "Replay":
             return Replay(_tiny_graph())
+        if entry == "large_inc":
+            return large_inc.main(["--poses", "50", "--start_capacity",
+                                   "64", "--panel_nodes", "16"])
         path = tmp_path / "one.g2o"
         path.write_text("VERTEX2 0 0 0 0\nVERTEX2 1 1 0 0\n"
                         "EDGE2 0 1 1 0 0 100 0 100 1000 0 0\n")

@@ -38,6 +38,23 @@ SEP = {"replicated": dict(sep_dist=False),
        "distributed": dict(sep_dist=True, sep_block=16)}
 DP = dict(n=32, seed=0, tikhonov=1e-2)
 PCHOL_TIKHONOV = 1e-8
+# The dry run's realistically shaped float32 case at D = 4 (its graph,
+# its separator modes; gn_iters=1, float32's default eq_jitter 1e-5).
+# Measured on the CPU: the JAX package's two modes differ by 2.7e-4 in xy
+# and 1.1e-5 in theta (mod 2pi), but they share the interior eliminations,
+# so that spread sees only the separator solve's rounding.  The port and
+# the JAX package differ by 0.020 in xy and 4.7e-4 in theta in each mode,
+# while in float64 they agree to 1.2e-10: the difference is float32
+# rounding of the whole solve.  Against the float64 solve of the same
+# damped system the JAX package's float32 is 0.0164 (xy) and 4.9e-4
+# (theta) off in each mode, the port's 0.0075 and 1.5e-4.  So each mode is
+# held to twice the JAX package's own float32 error, and the port's
+# float32 error to no more than the JAX package's.
+F32_GRAPH = dict(n_poses=512 * 4, seed=3, closure_prob=0.2, block=25)
+F32_SEP = {"replicated": dict(sep_dist=False),
+           "distributed": dict(sep_dist=True, sep_block=128)}
+F32_TOL = {"replicated": {"xy": 0.033, "theta": 1e-3},
+           "distributed": {"xy": 0.033, "theta": 1e-3}}
 
 
 def _spd_system(nl):
@@ -80,7 +97,8 @@ def _rank_checks(mesh):
                                                 dtype=np.float64, **kw)
     out["dp"] = tuple(t.numpy() for t in small_dp_solve(
         mesh, DP["n"], DP["seed"], torch.float64, DP["tikhonov"]))
-    out["dryrun"] = dryrun_multichip(mesh)
+    out["f32"] = {}
+    out["dryrun"] = dryrun_multichip(mesh, states=out["f32"])
     return out
 
 
@@ -111,6 +129,65 @@ def jax_schur():
             for B in SCHUR_BLOCKS for name, kw in SEP.items()}
 
 
+@pytest.fixture(scope="module")
+def jax_schur_f32():
+    """The JAX package's float32 solve of the dry run's 512*D-pose graph on
+    its 4-device mesh in both separator modes, and the float64 solve of
+    the same damped system (eq_jitter 1e-5)."""
+    from aprilsam_tpu.datasets import manhattan_world as j_manhattan
+    from aprilsam_tpu.parallel.schur import partition_graph as j_partition
+    from aprilsam_tpu.parallel.schur import schur_solve as j_schur
+
+    g = j_manhattan(**F32_GRAPH)
+    part, mesh = j_partition(g, 4), _jax_mesh(4)
+    out = {name: j_schur(mesh, g, part, gn_iters=1, dtype=np.float32, **kw)
+           for name, kw in F32_SEP.items()}
+    out["float64"] = j_schur(mesh, g, part, gn_iters=1, dtype=np.float64,
+                             eq_jitter=1e-5)
+    return out
+
+
+def _xy_theta(a, b):
+    """Largest xy and theta (mod 2pi) differences of two state tables."""
+    dth = np.abs((a[:, 2] - b[:, 2] + np.pi) % (2 * np.pi) - np.pi)
+    return float(np.max(np.abs(a[:, :2] - b[:, :2]))), float(np.max(dth))
+
+
+@pytest.mark.parametrize("sep", list(F32_SEP))
+def test_schur_float32_matches_jax(port, jax_schur_f32, sep):
+    """The float32 schur_solve of the dry run (four gloo ranks) against the
+    JAX package's on its 4-device mesh, per separator mode (F32_TOL), and
+    at least as close as the JAX package's to the float64 solve."""
+    got = port[4][0]["f32"][sep]
+    want = jax_schur_f32[sep]
+    assert got.shape == want.shape == (F32_GRAPH["n_poses"], 3)
+    xy, th = _xy_theta(got, want)
+    assert xy < F32_TOL[sep]["xy"] and th < F32_TOL[sep]["theta"], (xy, th)
+    ref = jax_schur_f32["float64"]
+    err_t, err_j = _xy_theta(got, ref), _xy_theta(want, ref)
+    assert err_t[0] <= err_j[0] and err_t[1] <= err_j[1], (err_t, err_j)
+
+
+def test_dryrun_max_diff_is_jax():
+    """The dry run compares two state tables as the JAX package's does
+    (__graft_entry__.py:146): max |a - b| over all three columns, angles
+    not wrapped; the figure mod 2pi is printed beside it."""
+    from aprilsam_tpu_torch.parallel.dryrun import _max_diff, _max_diff_mod2pi
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((50, 3))
+    a[:, 2] = rng.uniform(-np.pi, np.pi, 50)
+    b = a + 1e-3 * rng.standard_normal((50, 3))
+    b[7, 2] = a[7, 2] + 2 * np.pi - 1e-3        # nearly 2pi apart
+    assert _max_diff(a, b) == float(np.max(np.abs(a - b)))
+    assert _max_diff(a, b) > 6.0
+    d = a - b
+    d[:, 2] = (d[:, 2] + np.pi) % (2 * np.pi) - np.pi
+    assert _max_diff_mod2pi(a, b) == pytest.approx(np.max(np.abs(d)),
+                                                   abs=1e-12)
+    assert _max_diff_mod2pi(a, b) < 0.01
+
+
 def test_ranks_agree(port):
     """Outputs are replicated: the four ranks return the same arrays."""
     ranks = port[4]
@@ -121,6 +198,8 @@ def test_ranks_agree(port):
             np.testing.assert_array_equal(r["schur"][key], x)
         for a, b in zip(r["dp"], ranks[0]["dp"]):
             np.testing.assert_array_equal(a, b)
+        for key, x in ranks[0]["f32"].items():
+            np.testing.assert_array_equal(r["f32"][key], x)
         assert r["dryrun"] == ranks[0]["dryrun"]
 
 
@@ -274,6 +353,7 @@ def test_dryrun_multichip(port, world):
     if world == 4:
         assert res["small_ns"] > 0 and res["large_ns"] > 0
         assert res["small_sep_diff"] < 5e-2 and res["large_sep_diff"] < 5e-2
+        assert res["large_sep_diff_mod2pi"] <= res["large_sep_diff"]
 
 
 def test_distributed_solve_example(capsys):

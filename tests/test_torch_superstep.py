@@ -143,7 +143,7 @@ def _closure_run(Solver, Graph, cfg, third=False, **solver_kw):
     return s, g
 
 
-@pytest.mark.parametrize("variant", ["buckets16-32", "overflow"])
+@pytest.mark.parametrize("variant", ["buckets16-32", "overflow", "growth"])
 def test_superstep_capacity_flush_ingests_everything(variant):
     """A superstep flushed for capacity dispatches a buffer whose span
     predates the caller's pending step; the ingestion markers track the
@@ -152,19 +152,25 @@ def test_superstep_capacity_flush_ingests_everything(variant):
     package's for the same config, with the same counters.  The JAX
     test's buckets (16, 32) hold every union of this 30-node chain; the
     "overflow" variant adds a third factor per step (a capacity flush every
-    second step at kfac = 8) and caps unions at 24 nodes (overflows)."""
+    second step at kfac = 8) and caps unions at 24 nodes (overflows).  The
+    "growth" variant starts at a factor capacity the replay outgrows, so
+    that a capacity growth flushes the buffered superstep."""
     third = variant == "overflow"
     kw = dict(SUP, panel_nodes=32, nthreshold=10**9, log_chi2=False,
               superstep_size=4, superstep_buckets=(16, 24) if third
               else (16, 32), policy_lag=1, policy_poll=1)
     if third:
         kw["new_factor_capacity"] = 4
+    if variant == "growth":
+        kw.update(factor_capacity=48, new_factor_capacity=4)
     s, g = _closure_run(IncrementalSolver, None, SolverConfig(**kw),
                         third=third, device="cpu")
     c = s.counters
     if third:
         assert c["sup_overflow"] > 0 and c["superstep"] > 0
         assert c["superstep"] + c["sup_overflow"] == 6     # 2 steps each
+    if variant == "growth":
+        assert [r["factor_capacity"] for r in s.growths] == [96]
     nx = int(np.sum(g.ftype[:g.nfactors] == FACTOR_XYT))
     assert s.ds.n_xyt == nx
     assert s.ds.n_pos == g.nfactors - nx
@@ -176,6 +182,7 @@ def test_superstep_capacity_flush_ingests_everything(variant):
     assert abs(s.chi2() - s2.chi2()) < 0.02, (s.chi2(), s2.chi2())
 
     sj, _ = _closure_run(JSolver, JGraph, JConfig(**kw), third=third)
+    assert sj.cfg.factor_capacity == s.cfg.factor_capacity
     for k, v in sj.counters.items():
         assert s.counters[k] == v, k
     assert abs(s.chi2() - sj.chi2()) < 0.02, (s.chi2(), sj.chi2())

@@ -12,37 +12,13 @@ Run:  python -m aprilsam_tpu_torch.examples.distributed_solve \
 """
 
 import argparse
-import contextlib
 import copy
-import os
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
 from aprilsam_tpu_torch.datasets import manhattan_world
-from aprilsam_tpu_torch.parallel import make_mesh, one_rank_group
+from aprilsam_tpu_torch.parallel import launched_mesh
 from aprilsam_tpu_torch.parallel.schur import partition_graph, schur_solve
-
-
-@contextlib.contextmanager
-def _mesh(device: str):
-    """The caller's group, torchrun's world, or a world of one rank."""
-    if dist.is_initialized():
-        yield make_mesh(device=device)
-    elif "TORCHELASTIC_RUN_ID" in os.environ:        # started by torchrun
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-            torch.cuda.set_device(dev)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-        try:
-            yield make_mesh(device=dev)
-        finally:
-            dist.destroy_process_group()
-    else:
-        with one_rank_group(device) as mesh:
-            yield mesh
 
 
 def main(argv=None):
@@ -52,7 +28,7 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    with _mesh(args.device) as mesh:
+    with launched_mesh(args.device) as mesh:
         ndev = mesh.size
         show = print if mesh.rank == 0 else (lambda *a, **k: None)
         blocks = args.blocks - args.blocks % ndev or ndev

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -101,14 +100,6 @@ def make_replay(args, **overrides):
     cfg = large_config(args, device, **overrides)
     return Replay(g, cfg, batch_update_only=False, deferred=True,
                   device=device)
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def run_replay(rep, args, out=print) -> dict:
@@ -199,6 +190,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from .utils import resolve_device
+    from .utils.card import card_line
 
     device = resolve_device(args.device)
     print(f"device: {device}", flush=True)

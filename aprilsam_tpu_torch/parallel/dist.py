@@ -80,6 +80,27 @@ def init_group(rank: int, world_size: int, store_path: str,
 
 
 @contextlib.contextmanager
+def launched_mesh(device="cuda"):
+    """The caller's group, the world torchrun started (one card per rank),
+    or a world of one rank on `device` for the duration of the block."""
+    if dist.is_initialized():
+        yield make_mesh(device=device)
+    elif "TORCHELASTIC_RUN_ID" in os.environ:        # started by torchrun
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        try:
+            yield make_mesh(device=dev)
+        finally:
+            dist.destroy_process_group()
+    else:
+        with one_rank_group(device) as mesh:
+            yield mesh
+
+
+@contextlib.contextmanager
 def one_rank_group(device="cuda"):
     """A world of one rank on `device` for the duration of the block, torn
     down at its end."""

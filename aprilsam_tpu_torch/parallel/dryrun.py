@@ -1,12 +1,13 @@
-"""Multi-rank dry run of the distributed solves, and a CPU launcher for
+"""Multi-rank dry run of the distributed solves, and a launcher for
 several ranks.
 
 Counterpart of ``__graft_entry__.py:_small_problem`` and
 ``dryrun_multichip``: the data-parallel batch solve and the keyframe-block
 Schur solve (replicated and distributed separator), at the JAX package's
 sizes and tolerances, on whatever group the caller's mesh holds (one NCCL
-rank per card, or gloo ranks on the CPU).  ``run_ranks`` starts a gloo
-world of CPU processes and runs a function on each rank.
+rank per card, or gloo ranks on the CPU).  ``run_ranks`` starts a world
+of processes (gloo on the CPU, NCCL one card per rank) and runs a
+function on each rank.
 """
 
 from __future__ import annotations
@@ -143,10 +144,11 @@ def dryrun_multichip(mesh: Mesh, states: dict = None) -> dict:
     return out
 
 
-def _rank_main(rank, world_size, store_path, fn, args, results):
-    torch.set_num_threads(1)
+def _rank_main(rank, world_size, store_path, device, fn, args, results):
+    if device == "cpu":
+        torch.set_num_threads(1)
     try:
-        mesh = init_group(rank, world_size, store_path, device="cpu")
+        mesh = init_group(rank, world_size, store_path, device=device)
         try:
             value = fn(mesh, *args)
         finally:
@@ -156,17 +158,23 @@ def _rank_main(rank, world_size, store_path, fn, args, results):
         results.put((rank, traceback.format_exc(), None))
 
 
-def run_ranks(fn, world_size: int, *args, timeout: float = 600.0) -> list:
-    """Run fn(mesh, *args) on each rank of a gloo world of `world_size`
-    CPU processes (spawned; fn and args must pickle, fn by import path).
-    Returns the ranks' results in rank order; raises if a rank fails or
-    the world does not finish within `timeout` seconds."""
+def run_ranks(fn, world_size: int, *args, timeout: float = 600.0,
+              device: str = "cpu") -> list:
+    """Run fn(mesh, *args) on each rank of a world of `world_size` spawned
+    processes (fn and args must pickle, fn by import path): gloo ranks on
+    the CPU, or with device="cuda" NCCL ranks, rank r on card r.  Returns
+    the ranks' results in rank order; raises if a rank fails or the world
+    does not finish within `timeout` seconds."""
+    if device == "cuda" and world_size > torch.cuda.device_count():
+        raise ValueError(f"{world_size} NCCL ranks need {world_size} cards; "
+                         f"this machine has {torch.cuda.device_count()}")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, world_size, store, fn, args, results))
+                             args=(r, world_size, store, device, fn, args,
+                                   results))
                  for r in range(world_size)]
         for p in procs:
             p.start()

@@ -18,6 +18,11 @@ large.  Rank r takes blocks [r B/D, (r+1) B/D), as the JAX package's
 P(axis) split of the block axis does, and runs them in batches of at most
 `block_chunk` (the JAX package's lax.map batch size), which bounds the
 transient memory of the dense assembly.
+
+Each Gauss-Newton step runs under the torch.profiler range
+"schur.gn_step", its parts under "schur.eliminate" (with "schur.assemble"
+inside), "schur.separator" and "schur.backsub": schur_stages.py sums the
+profiled device time by them.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import List
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..factors import eval_xyt, eval_xytpos, gn_blocks_xyt, gn_blocks_xytpos
 from ..geometry import mod2pi, np_mod2pi
@@ -305,75 +311,84 @@ def schur_solve(
         dvec = torch.empty((Bl, nI), dtype=dt, device=dev)
         S_flat = torch.zeros(nsys * nsys + 1, dtype=dt, device=dev)
         c_flat = torch.zeros(nsys + 1, dtype=dt, device=dev)
-        for c0 in range(0, Bl, block_chunk):
-            k = slice(c0, min(c0 + block_chunk, Bl))
-            A, Bv = _assemble(loc[k], fa[k], fb[k], fz[k], fW[k], fv[k],
-                              pn[k], pz[k], pW[k])
-            A_II = A[:, :nI, :nI]
-            A_II.diagonal(dim1=1, dim2=2).add_(tikhonov)
-            dv = torch.rsqrt(torch.clamp(
-                torch.diagonal(A_II, dim1=1, dim2=2), min=1e-30))
-            A_II.mul_(dv[:, :, None]).mul_(dv[:, None, :])
-            A_II.diagonal(dim1=1, dim2=2).add_(eq_jitter)
-            L = cholesky_nan(A_II)
-            W_c = torch.linalg.solve_triangular(
-                L, dv[:, :, None] * A[:, :nI, nI:], upper=False)
-            u_c = torch.linalg.solve_triangular(
-                L, (dv * Bv[:, :nI])[:, :, None], upper=False)
-            S_loc = A[:, nI:, nI:] - W_c.mT @ W_c
-            c_loc = Bv[:, nI:] - (W_c.mT @ u_c)[:, :, 0]
-            S_flat.index_add_(0, s_dst[k].reshape(-1), S_loc.reshape(-1))
-            c_flat.index_add_(0, c_dst[k].reshape(-1), c_loc.reshape(-1))
-            Ls[k], Wm[k], u_I[k], dvec[k] = L, W_c, u_c[:, :, 0], dv
-            del A, Bv, L, W_c, S_loc
+        with record_function("schur.eliminate"):
+            for c0 in range(0, Bl, block_chunk):
+                k = slice(c0, min(c0 + block_chunk, Bl))
+                with record_function("schur.assemble"):
+                    A, Bv = _assemble(loc[k], fa[k], fb[k], fz[k], fW[k],
+                                      fv[k], pn[k], pz[k], pW[k])
+                A_II = A[:, :nI, :nI]
+                A_II.diagonal(dim1=1, dim2=2).add_(tikhonov)
+                dv = torch.rsqrt(torch.clamp(
+                    torch.diagonal(A_II, dim1=1, dim2=2), min=1e-30))
+                A_II.mul_(dv[:, :, None]).mul_(dv[:, None, :])
+                A_II.diagonal(dim1=1, dim2=2).add_(eq_jitter)
+                L = cholesky_nan(A_II)
+                W_c = torch.linalg.solve_triangular(
+                    L, dv[:, :, None] * A[:, :nI, nI:], upper=False)
+                u_c = torch.linalg.solve_triangular(
+                    L, (dv * Bv[:, :nI])[:, :, None], upper=False)
+                S_loc = A[:, nI:, nI:] - W_c.mT @ W_c
+                c_loc = Bv[:, nI:] - (W_c.mT @ u_c)[:, :, 0]
+                S_flat.index_add_(0, s_dst[k].reshape(-1),
+                                  S_loc.reshape(-1))
+                c_flat.index_add_(0, c_dst[k].reshape(-1),
+                                  c_loc.reshape(-1))
+                Ls[k], Wm[k], u_I[k], dvec[k] = L, W_c, u_c[:, :, 0], dv
+                del A, Bv, L, W_c, S_loc
 
-        if sep_dist:
-            # reduce-scatter the padded separator system into block-cyclic
-            # row strips, then factor and solve it distributed
-            S_strip = torch.empty((geom.m * geom.b, geom.n), dtype=dt,
-                                  device=dev)
-            dist.reduce_scatter_tensor(
-                S_strip, S_flat[:nsys * nsys].view(nsys, nsys),
-                group=mesh.group)
-            del S_flat
-            dist.all_reduce(c_flat, group=mesh.group)
-            x = pchol_solve(geom, mesh, S_strip, c_flat[:nsys],
-                            tikhonov=tikhonov, eq_jitter=eq_jitter)
-            x_S = x[:3 * ns]
-        else:
-            dist.all_reduce(S_flat, group=mesh.group)
-            dist.all_reduce(c_flat, group=mesh.group)
-            S = S_flat[:nsys * nsys].view(nsys, nsys)
-            S.diagonal().add_(tikhonov)
-            ds2 = torch.rsqrt(torch.clamp(torch.diagonal(S), min=1e-30))
-            S.mul_(ds2[:, None]).mul_(ds2[None, :])
-            S.diagonal().add_(eq_jitter)
-            Lsep = cholesky_nan(S)
-            ysep = torch.linalg.solve_triangular(
-                Lsep, (ds2 * c_flat[:nsys])[:, None], upper=False)
-            x_S = ds2 * torch.linalg.solve_triangular(
-                Lsep.T, ysep, upper=True)[:, 0]
+        with record_function("schur.separator"):
+            if sep_dist:
+                # reduce-scatter the padded separator system into
+                # block-cyclic row strips, then factor and solve it
+                # distributed
+                S_strip = torch.empty((geom.m * geom.b, geom.n), dtype=dt,
+                                      device=dev)
+                dist.reduce_scatter_tensor(
+                    S_strip, S_flat[:nsys * nsys].view(nsys, nsys),
+                    group=mesh.group)
+                del S_flat
+                dist.all_reduce(c_flat, group=mesh.group)
+                x = pchol_solve(geom, mesh, S_strip, c_flat[:nsys],
+                                tikhonov=tikhonov, eq_jitter=eq_jitter)
+                x_S = x[:3 * ns]
+            else:
+                dist.all_reduce(S_flat, group=mesh.group)
+                dist.all_reduce(c_flat, group=mesh.group)
+                S = S_flat[:nsys * nsys].view(nsys, nsys)
+                S.diagonal().add_(tikhonov)
+                ds2 = torch.rsqrt(torch.clamp(torch.diagonal(S),
+                                              min=1e-30))
+                S.mul_(ds2[:, None]).mul_(ds2[None, :])
+                S.diagonal().add_(eq_jitter)
+                Lsep = cholesky_nan(S)
+                ysep = torch.linalg.solve_triangular(
+                    Lsep, (ds2 * c_flat[:nsys])[:, None], upper=False)
+                x_S = ds2 * torch.linalg.solve_triangular(
+                    Lsep.T, ysep, upper=True)[:, 0]
 
         # back-substitution of this rank's interiors
-        xs_loc = torch.where(sep_ok, x_S[gix], 0.0)
-        new_int = torch.empty((Bl, ni, 3), dtype=dt, device=dev)
-        for c0 in range(0, Bl, block_chunk):
-            k = slice(c0, min(c0 + block_chunk, Bl))
-            rhs = u_I[k] - (Wm[k] @ xs_loc[k][:, :, None])[:, :, 0]
-            x_I = dvec[k] * torch.linalg.solve_triangular(
-                Ls[k].mT, rhs[:, :, None], upper=True)[:, :, 0]
-            new = loc[k, :ni] + x_I.view(-1, ni, 3)
-            new[:, :, 2] = mod2pi(new[:, :, 2])
-            new_int[k] = new
-        everyone = torch.empty((B, ni, 3), dtype=dt, device=dev)
-        dist.all_gather_into_tensor(everyone, new_int, group=mesh.group)
+        with record_function("schur.backsub"):
+            xs_loc = torch.where(sep_ok, x_S[gix], 0.0)
+            new_int = torch.empty((Bl, ni, 3), dtype=dt, device=dev)
+            for c0 in range(0, Bl, block_chunk):
+                k = slice(c0, min(c0 + block_chunk, Bl))
+                rhs = u_I[k] - (Wm[k] @ xs_loc[k][:, :, None])[:, :, 0]
+                x_I = dvec[k] * torch.linalg.solve_triangular(
+                    Ls[k].mT, rhs[:, :, None], upper=True)[:, :, 0]
+                new = loc[k, :ni] + x_I.view(-1, ni, 3)
+                new[:, :, 2] = mod2pi(new[:, :, 2])
+                new_int[k] = new
+            everyone = torch.empty((B, ni, 3), dtype=dt, device=dev)
+            dist.all_gather_into_tensor(everyone, new_int, group=mesh.group)
         return everyone.cpu().numpy(), x_S.cpu().numpy()
 
     states = g.state[: g.nnodes].astype(np.float64).copy()
     for _ in range(gn_iters):
         loc = torch.as_tensor(_local_states(part, states, dtype)[mine],
                               device=dev)
-        new_int, x_S = gn_step(loc)
+        with record_function("schur.gn_step"):
+            new_int, x_S = gn_step(loc)
         for d, ids in enumerate(part.interiors):
             states[ids] = new_int[d, : len(ids)].astype(np.float64)
         if part.ns:

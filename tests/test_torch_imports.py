@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from aprilsam_tpu_torch import cli, large_inc
+from aprilsam_tpu_torch import cli, large_inc, scaling, schur_stages
 from aprilsam_tpu_torch.datasets import manhattan_world
 from aprilsam_tpu_torch.io import save_graph_file
 from aprilsam_tpu_torch.replay import Replay
@@ -54,7 +54,8 @@ def test_port_has_the_slice_modules():
               "checkpoint", "parallel", "parallel.dist", "parallel.pchol",
               "parallel.schur", "parallel.dryrun", "examples.tutorial",
               "examples.graph_save_load", "examples.distributed_solve",
-              "large_inc"):
+              "large_inc", "scaling", "scaling_model", "schur_stages",
+              "utils.card"):
         assert f"aprilsam_tpu_torch.{m}" in mods, m
     assert os.path.exists(os.path.join(PKG, "csrc", "tri_inv.cu"))
 
@@ -103,7 +104,8 @@ def _tiny_graph():
 
 
 @pytest.mark.parametrize("entry", ["IncrementalSolver", "BatchSolver",
-                                   "Replay", "cli", "large_inc"])
+                                   "Replay", "cli", "large_inc", "scaling",
+                                   "schur_stages"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """With no device argument the entry points take the card; where there
     is none they raise instead of running on the CPU."""
@@ -117,6 +119,10 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
         if entry == "large_inc":
             return large_inc.main(["--poses", "50", "--start_capacity",
                                    "64", "--panel_nodes", "16"])
+        if entry == "scaling":
+            return scaling.main(["--poses", "200", "--blocks", "4"])
+        if entry == "schur_stages":
+            return schur_stages.main(["--poses", "200", "--blocks", "4"])
         path = tmp_path / "one.g2o"
         path.write_text("VERTEX2 0 0 0 0\nVERTEX2 1 1 0 0\n"
                         "EDGE2 0 1 1 0 0 100 0 100 1000 0 0\n")

@@ -21,8 +21,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import os
 import tempfile
+import time
 from typing import Optional
 
 import numpy as np
@@ -65,17 +67,35 @@ def make_mesh(group: Optional[dist.ProcessGroup] = None,
     return Mesh(group=group, device=dev)
 
 
-def init_group(rank: int, world_size: int, store_path: str,
-               device="cuda") -> Mesh:
-    """Initialize the default process group from a FileStore at
-    `store_path` (no network): NCCL on cards, one card per rank; gloo on
-    the CPU.  Returns its mesh."""
-    dev = resolve_device(device)
+# how long a collective may wait for the other ranks before it raises (or,
+# on NCCL, the watchdog ends the process): above the longest stretch in
+# which one rank works alone while the others wait in a collective
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
+def _init_process_group(dev: torch.device, timeout: float, **kw) -> None:
+    """NCCL bound to this rank's card (its communicator is made here, not
+    at the first collective), or gloo on the CPU; a collective that waits
+    longer than `timeout` seconds fails."""
     if dev.type == "cuda":
-        torch.cuda.set_device(dev.index if dev.index is not None else rank)
-    store = dist.FileStore(store_path, world_size)
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            store=store, rank=rank, world_size=world_size)
+                            timeout=datetime.timedelta(seconds=timeout),
+                            **kw)
+
+
+def init_group(rank: int, world_size: int, store_path: str,
+               device="cuda", timeout: float = COLLECTIVE_TIMEOUT_S) -> Mesh:
+    """Initialize the default process group from a FileStore at
+    `store_path` (no network): NCCL on cards, rank r on card r (or on the
+    card `device` names); gloo on the CPU.  Returns its mesh."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank)
+    _init_process_group(dev, timeout,
+                        store=dist.FileStore(store_path, world_size),
+                        rank=rank, world_size=world_size)
     return make_mesh(None, dev)
 
 
@@ -89,8 +109,7 @@ def launched_mesh(device="cuda"):
         dev = resolve_device(device)
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
-            torch.cuda.set_device(dev)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+        _init_process_group(dev, COLLECTIVE_TIMEOUT_S)
         try:
             yield make_mesh(device=dev)
         finally:
@@ -110,6 +129,48 @@ def one_rank_group(device="cuda"):
             yield mesh
         finally:
             dist.destroy_process_group()
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank of the mesh's group; on NCCL on the rank's own
+    card (a barrier without a device guesses one)."""
+    if mesh.device.type == "cuda":
+        dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
+    else:
+        dist.barrier(group=mesh.group)
+
+
+def subgroups(mesh: Mesh, sizes) -> dict:
+    """{k: the mesh of ranks 0..k-1 of the world `mesh`, or None on a rank
+    outside it} for each size k.  Every rank of the world calls it with
+    the same sizes, and each group is made once."""
+    out = {}
+    for k in sorted(set(sizes)):
+        group = (mesh.group if k == mesh.size
+                 else dist.new_group(list(range(k))))
+        out[k] = Mesh(group, mesh.device) if mesh.rank < k else None
+    return out
+
+
+def clocked(mesh: Mesh, fn):
+    """(seconds, fn()) on this rank: the clock starts after every rank of
+    the mesh has reached it and ends on the rank's card."""
+    barrier(mesh)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    value = fn()
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    return time.perf_counter() - t0, value
+
+
+def slowest(mesh: Mesh, values) -> list:
+    """The largest of each of this rank's values over the mesh's ranks (a
+    time is the slowest rank's)."""
+    t = torch.tensor(values, dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    return t.tolist()
 
 
 def dp_batch_solve(

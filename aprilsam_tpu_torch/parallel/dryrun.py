@@ -25,8 +25,8 @@ import torch.multiprocessing as mp
 
 from ..datasets import manhattan_world
 from ..geometry import np_mod2pi
-from .dist import (Mesh, dp_batch_solve, init_group, local_shard,
-                   shard_factor_tables)
+from .dist import (COLLECTIVE_TIMEOUT_S, Mesh, dp_batch_solve, init_group,
+                   local_shard, shard_factor_tables)
 from .schur import partition_graph, schur_solve
 
 
@@ -144,27 +144,48 @@ def dryrun_multichip(mesh: Mesh, states: dict = None) -> dict:
     return out
 
 
-def _rank_main(rank, world_size, store_path, device, fn, args, results):
+def _rank_main(rank, world_size, store_path, device, timeout, fn, args,
+               results):
     if device == "cpu":
         torch.set_num_threads(1)
     try:
-        mesh = init_group(rank, world_size, store_path, device=device)
-        try:
-            value = fn(mesh, *args)
-        finally:
-            dist.destroy_process_group()
-        results.put((rank, None, value))
+        mesh = init_group(rank, world_size, store_path, device=device,
+                          timeout=timeout)
     except Exception:                      # reported to the launcher
         results.put((rank, traceback.format_exc(), None))
+        return
+    try:
+        results.put((rank, None, fn(mesh, *args)))
+    except Exception:
+        # reported before the group is torn down: the launcher ends the
+        # world at once, whatever the other ranks wait for
+        results.put((rank, traceback.format_exc(), None))
+        return
+    dist.destroy_process_group()
+
+
+def _stop(procs, grace: float) -> None:
+    """Join each process for up to `grace` seconds in all; kill the rest."""
+    deadline = time.monotonic() + grace
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
 
 
 def run_ranks(fn, world_size: int, *args, timeout: float = 600.0,
-              device: str = "cpu") -> list:
+              device: str = "cpu",
+              collective_timeout: float = COLLECTIVE_TIMEOUT_S) -> list:
     """Run fn(mesh, *args) on each rank of a world of `world_size` spawned
     processes (fn and args must pickle, fn by import path): gloo ranks on
-    the CPU, or with device="cuda" NCCL ranks, rank r on card r.  Returns
-    the ranks' results in rank order; raises if a rank fails or the world
-    does not finish within `timeout` seconds."""
+    the CPU, or with device="cuda" NCCL ranks, rank r on card r.  Only
+    host values should come back: each rank's result is pickled through a
+    queue.  Returns the ranks' results in rank order; raises if a rank
+    fails (with its traceback; the other ranks are ended at once), if a
+    collective waits longer than `collective_timeout` seconds, or if the
+    world does not finish within `timeout` seconds."""
     if device == "cuda" and world_size > torch.cuda.device_count():
         raise ValueError(f"{world_size} NCCL ranks need {world_size} cards; "
                          f"this machine has {torch.cuda.device_count()}")
@@ -173,12 +194,12 @@ def run_ranks(fn, world_size: int, *args, timeout: float = 600.0,
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, world_size, store, device, fn, args,
-                                   results))
+                             args=(r, world_size, store, device,
+                                   collective_timeout, fn, args, results))
                  for r in range(world_size)]
         for p in procs:
             p.start()
-        got, dead_before = {}, []
+        got, dead_before, failed = {}, [], True
         try:
             deadline = time.monotonic() + timeout
             while len(got) < world_size:
@@ -190,8 +211,10 @@ def run_ranks(fn, world_size: int, *args, timeout: float = 600.0,
                     dead = [r for r, p in enumerate(procs)
                             if p.exitcode is not None and r not in got]
                     if dead and dead == dead_before:
-                        raise RuntimeError(f"ranks {dead} exited with "
-                                           "no result") from None
+                        codes = [procs[r].exitcode for r in dead]
+                        raise RuntimeError(f"ranks {dead} exited with no "
+                                           f"result (exit codes {codes})"
+                                           ) from None
                     dead_before = dead
                     if time.monotonic() > deadline:
                         raise TimeoutError(f"{world_size} ranks did not "
@@ -200,11 +223,7 @@ def run_ranks(fn, world_size: int, *args, timeout: float = 600.0,
                 if err is not None:
                     raise RuntimeError(f"rank {rank} failed:\n{err}")
                 got[rank] = value
+            failed = False
         finally:
-            for p in procs:
-                p.join(timeout=30)
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
+            _stop(procs, 1.0 if failed else 60.0)
     return [got[r] for r in range(world_size)]

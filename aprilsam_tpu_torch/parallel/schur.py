@@ -226,6 +226,12 @@ def _assemble(st, a, b, z, W, valid, pn, pz, pW):
     return A, Bv[:, :3 * NL]
 
 
+def default_sep_dist(part: Partition, D: int, sep_block: int = 128) -> bool:
+    """The separator mode schur_solve picks on D ranks (sep_dist=None):
+    block-cyclic once 3 ns reaches 4 block rows per rank."""
+    return part.ns > 0 and 3 * part.ns >= 4 * sep_block * D
+
+
 def schur_solve(
     mesh: Mesh,
     g: FactorGraph,
@@ -269,7 +275,7 @@ def schur_solve(
     if eq_jitter is None:
         eq_jitter = 1e-5 if dt == torch.float32 else 0.0
     if sep_dist is None:
-        sep_dist = part.ns > 0 and 3 * part.ns >= 4 * sep_block * D
+        sep_dist = default_sep_dist(part, D, sep_block)
     geom = pchol_geom(3 * part.ns, D, block=sep_block) if sep_dist else None
     nsys = geom.n if sep_dist else 3 * ns
 

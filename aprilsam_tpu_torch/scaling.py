@@ -21,8 +21,10 @@ JAX script picks them by platform) and --ranks:
 
 The world is --ranks spawned processes (gloo on the CPU; NCCL on the
 card, one card per rank: more ranks than cards raise), else the ranks
-torchrun started, else one rank.  Under --json the last line is the JAX
-script's JSON; on the card its unit names the card and its power limit.
+torchrun started, else one rank.  Each size's time is its slowest
+rank's.  Under --json the last line is the JAX script's JSON; on the card
+its unit adds the efficiency at the middle size, the card, its power
+limit and the link between the cards.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -83,34 +84,27 @@ def graph_chi2(g, states) -> float:
 
 
 def timed_solve(mesh, g, part, gn_iters: int, dtype) -> dict:
-    """A warm gn_iters=1 solve, then the timed solve; chi2 off the clock."""
-    import torch
-    import torch.distributed as dist
-
+    """A warm gn_iters=1 solve (the group's first collectives), then the
+    timed solve, its clock started after a barrier and ended on each
+    rank's card; the seconds are the slowest rank's (one all-reduce after
+    the clock); chi2 off the clock."""
+    from .parallel.dist import clocked, slowest
     from .parallel.schur import schur_solve
 
-    def sync():
-        if mesh.device.type == "cuda":
-            torch.cuda.synchronize(mesh.device)
-
     schur_solve(mesh, g, part, gn_iters=1, dtype=dtype)
-    dist.barrier(group=mesh.group)
-    sync()
-    t0 = time.perf_counter()
-    states = schur_solve(mesh, g, part, gn_iters=gn_iters, dtype=dtype)
-    sync()
-    secs = time.perf_counter() - t0
-    return {"seconds": secs, "chi2": graph_chi2(g, states), "states": states}
+    secs, states = clocked(mesh, lambda: schur_solve(
+        mesh, g, part, gn_iters=gn_iters, dtype=dtype))
+    return {"seconds": slowest(mesh, [secs])[0],
+            "chi2": graph_chi2(g, states), "states": states}
 
 
-def bench_rank(mesh, args) -> dict:
+def bench_rank(mesh, args, meshes: dict = None) -> dict:
     """Run on each rank of the world `mesh`: the graph, its partition, and
-    each mesh size's solve on the ranks of its sub-group.  Returns the
+    each mesh size's solve on the ranks of its sub-group (`meshes`, from
+    parallel/dist.py:subgroups, made here when not given).  Returns the
     graph's figures and {size: timed_solve(...)} for the sizes this rank
     took part in."""
-    import torch.distributed as dist
-
-    from .parallel.dist import Mesh
+    from .parallel.dist import barrier, subgroups
     from .parallel.schur import partition_graph
     from .scaling_model import scaling_graph
 
@@ -120,26 +114,30 @@ def bench_rank(mesh, args) -> dict:
     out = {"nodes": g.nnodes, "factors": g.nfactors, "chi2_initial": g.chi2(),
            "ni_max": part.ni_max, "ns": part.ns, "world": mesh.size,
            "dtype": np.dtype(dtype).name, "sizes": {}}
-    for k in mesh_sizes(mesh.size, args.blocks):
-        group = dist.new_group(list(range(k)))     # every rank calls it
-        if mesh.rank < k:
-            out["sizes"][k] = timed_solve(Mesh(group, mesh.device), g, part,
-                                          args.gn_iters, dtype)
-        dist.barrier(group=mesh.group)
+    sizes = mesh_sizes(mesh.size, args.blocks)
+    meshes = meshes or subgroups(mesh, sizes)
+    for k in sizes:
+        if meshes[k] is not None:
+            out["sizes"][k] = timed_solve(meshes[k], g, part, args.gn_iters,
+                                          dtype)
+        barrier(mesh)
     return out
 
 
-def efficiency(res: dict):
-    """T(1) / (N T(N)) for the world of N ranks, or None where either size
-    did not run."""
-    n, t = res["world"], res["sizes"]
-    if 1 in t and n in t:
-        return t[1]["seconds"] / (t[n]["seconds"] * n)
+def efficiency(res: dict, k: int = None):
+    """T(1) / (k T(k)) for k ranks (default: the world's N), or None where
+    either size did not run."""
+    k = k or res["world"]
+    t = res["sizes"]
+    if 1 in t and k in t:
+        return t[1]["seconds"] / (t[k]["seconds"] * k)
     return None
 
 
-def report(res: dict, args, device, card, out=print) -> None:
-    """The JAX script's lines from rank 0's result."""
+def report(res: dict, args, device, card, link=None, out=print) -> None:
+    """The JAX script's lines from rank 0's result, with the efficiency at
+    every size above 1; on the card the JSON unit adds E at the middle
+    size, the card and the link between the cards."""
     out(f"generated {args.poses}-pose Manhattan world: nodes={res['nodes']} "
         f"factors={res['factors']} initial chi2={res['chi2_initial']:.1f}")
     out(f"partition: {args.blocks} blocks, interior_max={res['ni_max']}, "
@@ -149,17 +147,24 @@ def report(res: dict, args, device, card, out=print) -> None:
     for k, r in sorted(res["sizes"].items()):
         out(f"ndev={k}: {r['seconds']:.2f}s  chi2 {c0:.1f} -> "
             f"{r['chi2']:.1f}")
+    n = res["world"]
+    note = CPU_NOTE if device.type == "cpu" else ""
+    mids = [k for k in sorted(res["sizes"]) if 1 < k < n]
+    for k in mids:
+        out(f"scaling efficiency at {k} devices: {efficiency(res, k):.2f}"
+            f"{note}")
     eff = efficiency(res)
     if eff is None:
         return
-    n = res["world"]
-    note = CPU_NOTE if device.type == "cpu" else ""
     out(f"scaling efficiency at {n} devices: {eff:.2f}{note}")
     if args.json:
         unit = f"(poses={args.poses}, devices={n}"
-        unit += f", card={card})" if card else ")"
+        if card:
+            unit += "".join(f", E({k})={efficiency(res, k):.3f}"
+                            for k in mids)
+            unit += f", card={card}" + (f", link={link}" if link else "")
         out(json.dumps({"metric": "schur_scaling_efficiency",
-                        "value": round(eff, 3), "unit": unit,
+                        "value": round(eff, 3), "unit": unit + ")",
                         "vs_baseline": round(eff / 0.7, 3)}))
 
 
@@ -187,13 +192,14 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from .utils import resolve_device
-    from .utils.card import card_line
+    from .utils.card import card_line, link_line
 
     device = resolve_device(args.device)
     results = run(args)
     if results:
-        card = card_line() if device.type == "cuda" else None
-        report(results[0], args, device, card,
+        cuda = device.type == "cuda"
+        report(results[0], args, device, card_line() if cuda else None,
+               link_line() if cuda else None,
                out=lambda m: print(m, flush=True))
     return 0
 

@@ -29,6 +29,7 @@ prints one JSON row per (ndev, separator mode) for ndev 2, 4 and 8.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -57,13 +58,15 @@ class MetaMesh:
 
 class _Recorder:
     """Stands in for torch.distributed inside one module of parallel/:
-    adds each collective's count and input bytes to `hits` by kind."""
+    adds each collective's count and input bytes to `hits` by kind, and
+    where `real` is torch.distributed, runs the collective too."""
 
     def __init__(self, hits, gather_kind: str = "all-gather",
-                 stop_at_gather: bool = False):
+                 stop_at_gather: bool = False, real=None):
         self.hits = hits
         self.gather_kind = gather_kind
         self.stop_at_gather = stop_at_gather
+        self.real = real
 
     def _add(self, kind: str, t: torch.Tensor) -> None:
         self.hits[kind][0] += 1
@@ -71,14 +74,48 @@ class _Recorder:
 
     def all_reduce(self, tensor, group=None):
         self._add("all-reduce", tensor)
+        if self.real is not None:
+            self.real.all_reduce(tensor, group=group)
 
     def reduce_scatter_tensor(self, output, input, group=None):
         self._add("reduce-scatter", input)
+        if self.real is not None:
+            self.real.reduce_scatter_tensor(output, input, group=group)
 
     def all_gather_into_tensor(self, output, input, group=None):
         self._add(self.gather_kind, input)
         if self.stop_at_gather:
             raise _Stop
+        if self.real is not None:
+            self.real.all_gather_into_tensor(output, input, group=group)
+
+
+@contextlib.contextmanager
+def _recording(**kw):
+    """{kind: [count, bytes]} of the collectives that parallel/schur.py
+    and parallel/pchol.py issue inside the block, their `dist` swapped for
+    recorders (schur.py's only all-gather is the interiors', kind
+    "interiors"; pchol.py's are the separator's)."""
+    from .parallel import pchol, schur
+
+    hits = defaultdict(lambda: [0, 0])
+    saved = schur.dist, pchol.dist
+    schur.dist = _Recorder(hits, gather_kind="interiors", **kw)
+    pchol.dist = _Recorder(hits, real=kw.get("real"))
+    try:
+        yield hits
+    finally:
+        schur.dist, pchol.dist = saved
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """The collectives of the distributed solve run inside the block, as
+    trace_collectives records them, counted as they run."""
+    import torch.distributed as dist
+
+    with _recording(real=dist) as hits:
+        yield hits
 
 
 def scaling_graph(poses: int, closure_prob: float = 0.02):
@@ -92,32 +129,24 @@ def scaling_graph(poses: int, closure_prob: float = 0.02):
 
 
 def trace_collectives(g, part, ndev: int, sep_dist: bool,
-                      sep_block: int = 128) -> dict:
-    """{kind: [count, bytes]} of one float32 Gauss-Newton step of
-    schur_solve(g, part) on rank 0 of `ndev` ranks.  The kinds are the JAX
-    script's ("all-reduce", "all-gather", "reduce-scatter"), plus
-    "interiors": the all-gather of the new interior states, which the JAX
-    script's walk does not see."""
-    from .parallel import pchol, schur
+                      sep_block: int = 128, dtype=np.float32) -> dict:
+    """{kind: [count, bytes]} of one Gauss-Newton step of schur_solve(g,
+    part) in `dtype` (float32, the JAX script's) on rank 0 of `ndev`
+    ranks.  The kinds are the JAX script's ("all-reduce", "all-gather",
+    "reduce-scatter"), plus "interiors": the all-gather of the new
+    interior states, which the JAX script's walk does not see."""
+    from .parallel.schur import schur_solve
 
-    hits = defaultdict(lambda: [0, 0])
-    saved = schur.dist, pchol.dist
-    # schur.py's only all-gather is the interiors' (pchol.py's are the
-    # separator's)
-    schur.dist = _Recorder(hits, gather_kind="interiors",
-                           stop_at_gather=True)
-    pchol.dist = _Recorder(hits)
-    try:
-        schur.schur_solve(MetaMesh(ndev), g, part, gn_iters=1,
-                          dtype=np.float32, sep_dist=sep_dist,
-                          sep_block=sep_block)
-    except _Stop:
-        pass
-    else:
-        raise RuntimeError("schur_solve ended without the interiors' "
-                           "all-gather")
-    finally:
-        schur.dist, pchol.dist = saved
+    with _recording(stop_at_gather=True) as hits:
+        try:
+            schur_solve(MetaMesh(ndev), g, part, gn_iters=1,
+                        dtype=dtype, sep_dist=sep_dist,
+                        sep_block=sep_block)
+        except _Stop:
+            pass
+        else:
+            raise RuntimeError("schur_solve ended without the interiors' "
+                               "all-gather")
     return dict(hits)
 
 

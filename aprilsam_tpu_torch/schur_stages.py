@@ -1,32 +1,46 @@
-"""Single-card stage costs of the distributed Schur solve at 100k poses: the
+"""Stage costs of the distributed Schur solve at 100k poses: the
 counterpart of ``profile_r5_schur_stages.py`` on PyTorch.
 
-Runs ``parallel/schur.py:schur_solve`` on one rank (all B blocks on one
-device: the per-rank work of a B/k-blocks-per-rank deployment times k) on
-the JAX script's graph, ``manhattan_world(poses, seed=0, closure_prob,
-block=25, max_closures_per_pose=1)`` in `blocks` blocks, in the JAX
-script's order: two full solves (the first warm), a warm ``gn_iters=1``
-solve, the per-Gauss-Newton-iteration time from their difference, and the
-final chi2.  Then one more iteration under ``torch.profiler``, its device
-time summed by stage (``STAGES``): each kernel is placed by the profiler
-range of ``schur_solve`` it ran under (``schur.assemble``,
-``schur.eliminate``, ``schur.separator``, ``schur.backsub``, inside
-``schur.gn_step``) and by the torch operation that launched it.  Printed
-beside it: the host time outside any kernel (the device's idle share),
-the peak device memory, the least time the card could take for the
-iteration (the bound) and its share, and the projection of SCALING.md
-section 4 from these stages, with the bytes per iteration of
-``scaling_model`` on this partition.  No link between cards has been
-measured, so the projection leaves communication time out.
+Runs ``parallel/schur.py:schur_solve`` on the JAX script's graph,
+``manhattan_world(poses, seed=0, closure_prob, block=25,
+max_closures_per_pose=1)`` in `blocks` blocks, in the JAX script's order
+(``iteration_times``): a warm full solve, then a full and a
+``gn_iters=1`` solve three times over, the per-Gauss-Newton-iteration
+time the median of their differences, and the final chi2.  Then one
+more iteration under ``torch.profiler``, its device time summed by stage
+(``STAGES``): each kernel is placed by the profiler range
+of ``schur_solve`` it ran under (``schur.assemble``, ``schur.eliminate``,
+``schur.separator``, ``schur.backsub``, inside ``schur.gn_step``) and by
+the torch operation that launched it.  Printed beside it: the host time
+outside any kernel (the device's idle share), the peak device memory, the
+least time the card could take for the iteration (the bound) and its
+share, and the projection of SCALING.md section 4 from the one-rank
+stages, with the bytes per iteration of ``scaling_model`` on this
+partition.
+
+With ``--ranks N`` the same runs on a spawned world of N ranks (NCCL, one
+card per rank; gloo on the CPU) at each mesh size of ``scaling.py``
+({1, max(2, N // 4), N} dividing `blocks`; size k is the sub-group of
+ranks 0..k-1, the others wait at a barrier), every rank profiled.  The
+tables then gain what one rank never has: the collectives' kernels
+(``separator reduction``, ``interiors gather``), and of their time the
+part each rank waited for the last rank to reach the collective (from the
+ranks' kernel start times on the host's clock).  Printed beside the
+projection: the measured T(k), the slowest rank's, and E(k) = T(1) /
+(k T(k)); and the collectives and bytes each rank issued in the profiled
+iteration, counted by wrapping the real ``torch.distributed`` calls,
+beside ``scaling_model``'s for the same size and separator mode.
 
 On the CPU the same table sums the host time of each torch operation
-(there are no kernels); its numbers are CPU times, not device times.
+(there are no kernels); its numbers are CPU times, not device times, and
+waiting is not measured.
 
     python -m aprilsam_tpu_torch.schur_stages [--poses 100000]
-        [--blocks 64] [--dtype float64] [--device cpu]
+        [--blocks 64] [--dtype float64] [--device cpu] [--ranks N]
 
-The last line is the JAX script's JSON, with the card's name and power
-limit; the line before it holds every figure, unrounded.
+The last line is the JAX script's JSON (at the largest size), with the
+card's name and power limit; the line before it holds every figure,
+unrounded.
 """
 
 from __future__ import annotations
@@ -40,11 +54,14 @@ import numpy as np
 
 STAGES = ("assembly", "interior Cholesky", "triangular solves",
           "Schur update", "separator reduction", "separator solve",
-          "back-substitution", "other")
+          "back-substitution", "interiors gather", "other")
 # the stages that divide by the rank count, and those that do not
 BLOCK_STAGES = ("assembly", "interior Cholesky", "triangular solves",
                 "Schur update", "back-substitution")
 SEP_STAGES = ("separator reduction", "separator solve")
+# the stages made of collectives, whose time holds the waiting for the
+# other ranks
+COMM_STAGES = ("separator reduction", "interiors gather")
 STEP = "schur.gn_step"
 RANGES = (STEP, "schur.eliminate", "schur.assemble", "schur.separator",
           "schur.backsub")
@@ -56,6 +73,8 @@ COLLECTIVE_MARKS = ("nccl", "gloo", "c10d::", "record_param_comms",
                     "allreduce", "all_reduce", "allgather", "all_gather",
                     "reduce_scatter", "reducescatter")
 PROJECT_NDEVS = (2, 4, 8)
+# timed solve pairs per Gauss-Newton-iteration time, of which the median
+REPEATS = 3
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,6 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default="float32")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises if no card)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="spawn this many ranks (NCCL: one card each) and "
+                         "profile every mesh size of scaling.py")
     return ap
 
 
@@ -94,10 +116,11 @@ def classify(rng: str, op: str, name: str) -> str:
         if _collective(name) or _collective(op):
             return "separator reduction"
         return "separator solve"
-    if rng == "schur.backsub" and not (_collective(name)
-                                       or _collective(op)):
+    if rng == "schur.backsub":
+        if _collective(name) or _collective(op):
+            return "interiors gather"
         return "back-substitution"
-    return "other"          # the interiors' all-gather, copies to the host
+    return "other"          # copies to the host, the states' update
 
 
 def _place(evt):
@@ -121,7 +144,8 @@ def stage_table(prof, cuda: bool) -> dict:
     length, and the ten kernels (CPU: operations) that took longest.  On
     the card a stage's time is the device time of its kernels; on the CPU
     the host time of its operations (self time, so nesting is counted
-    once)."""
+    once).  On the card, "collectives" lists the collectives' kernels in
+    the order they started: [start ns, duration ns, stage]."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -135,6 +159,7 @@ def stage_table(prof, cuda: bool) -> dict:
     launches = dict.fromkeys(STAGES, 0)
     by_name = {}
     ambiguous = 0      # kernels whose id names operations placed apart
+    comms = []
 
     def add(stage, name, us):
         ms[stage] += us / 1e3
@@ -166,7 +191,10 @@ def stage_table(prof, cuda: bool) -> dict:
                 ambiguous += 1
             where = _place(cands[0]) if cands else None
             if where is not None:
-                add(classify(*where, name), name, k.duration_ns() / 1e3)
+                stage = classify(*where, name)
+                add(stage, name, k.duration_ns() / 1e3)
+                if stage in COMM_STAGES:
+                    comms.append([k.start_ns(), k.duration_ns(), stage])
     else:
         for e in cpu:
             if e.name in RANGES or e.self_cpu_time_total <= 0:
@@ -186,6 +214,7 @@ def stage_table(prof, cuda: bool) -> dict:
         "ambiguous_kernels": ambiguous,
         "stages": {s: {"ms": ms[s], "launches": launches[s],
                        "share": ms[s] / iteration} for s in STAGES},
+        "collectives": sorted(comms),
         "top": [{"name": n, "ms": v[0], "launches": v[1], "stage": v[2]}
                 for n, v in top],
     }
@@ -241,74 +270,197 @@ def projection(table: dict, g, part) -> list:
     return rows
 
 
-def profile_stages(mesh, g, part, gn_iters: int = 2, dtype=np.float32,
-                   peaks=None, out=print) -> dict:
-    """The JAX script's timings, then the profiled iteration, on `mesh`
-    (one rank).  `peaks` are the card's published rates (None on the CPU:
-    no bound).  Returns every figure and the final states."""
+def iteration_times(mesh, g, part, dtype, sep_dist=None,
+                    gn_iters: int = 2) -> dict:
+    """The JAX script's timings of schur_solve on `mesh`, REPEATS times
+    over: after a warm full solve (the group's first collectives), a full
+    `gn_iters` solve and a gn_iters=1 solve, each clock started after a
+    barrier and ended on every rank's card.  Per Gauss-Newton iteration:
+    the median over the repeats of (T(gn_iters) - T(1)) / (gn_iters - 1),
+    each T the slowest rank's, so the same on every rank.  Also the
+    medians of the two solves, every repeat's pair ("runs_s"), this
+    rank's peak device memory over the timed solves (None on the CPU) and
+    the last full solve's states."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from .parallel.dist import clocked, slowest
     from .parallel.schur import schur_solve
-    from .scaling import graph_chi2
+
+    def solve(n):
+        return schur_solve(mesh, g, part, gn_iters=n, dtype=dtype,
+                           sep_dist=sep_dist)
 
     cuda = mesh.device.type == "cuda"
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(mesh.device)
-
-    for attempt in range(2):
-        if cuda and attempt == 1:
-            torch.cuda.reset_peak_memory_stats(mesh.device)
-        sync()
-        t0 = time.perf_counter()
-        states = schur_solve(mesh, g, part, gn_iters=gn_iters, dtype=dtype)
-        sync()
-        t_total = time.perf_counter() - t0
-        out(f"attempt {attempt}: full solve {t_total:.2f}s")
+    solve(gn_iters)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    full, one = [], []
+    for _ in range(REPEATS):
+        t, states = clocked(mesh, lambda: solve(gn_iters))
+        full.append(t)
+        one.append(clocked(mesh, lambda: solve(1))[0])
     peak = torch.cuda.max_memory_allocated(mesh.device) if cuda else None
-    chi2 = graph_chi2(g, states)
-    sync()
-    t0 = time.perf_counter()
-    schur_solve(mesh, g, part, gn_iters=1, dtype=dtype)
-    sync()
-    t_gn1 = time.perf_counter() - t0
-    per_gn = (t_total - t_gn1) / max(1, gn_iters - 1)
-    out(f"gn_iters=1 (warm): {t_gn1:.2f}s -> per-GN-iteration "
-        f"{per_gn:.2f}s")
+    both = slowest(mesh, full + one)
+    full, one = both[:REPEATS], both[REPEATS:]
+    per_gn = [(a - b) / max(1, gn_iters - 1) for a, b in zip(full, one)]
+    return {"t_total_s": float(np.median(full)),
+            "t_gn1_s": float(np.median(one)),
+            "t_per_gn_s": float(np.median(per_gn)),
+            "runs_s": [list(p) for p in zip(full, one)],
+            "max_memory_allocated": peak, "states": states}
 
+
+def profile_stages(mesh, g, part, gn_iters: int = 2, dtype=np.float32,
+                   peaks=None, out=print) -> dict:
+    """iteration_times, then the profiled iteration, on this rank of
+    `mesh`.  `peaks` are the card's published rates (None on the CPU: no
+    bound).  Returns every figure, the final states, the collectives this
+    rank issued in the profiled iteration ({kind: [count, bytes]}, kinds
+    as scaling_model's) and, on a mesh of one rank, the projection."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .parallel.dist import clocked
+    from .parallel.schur import schur_solve
+    from .scaling import graph_chi2
+    from .scaling_model import counted_collectives
+
+    cuda = mesh.device.type == "cuda"
+    res = iteration_times(mesh, g, part, dtype, gn_iters=gn_iters)
+    for i, (full, one) in enumerate(res["runs_s"]):
+        out(f"run {i}: full solve {full:.2f}s, gn_iters=1 {one:.2f}s")
+    out(f"per-GN-iteration {res['t_per_gn_s']:.2f}s (the median of "
+        f"{len(res['runs_s'])})")
+
+    # the barrier's kernel and its wait stay out of the profiled iteration
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
-        schur_solve(mesh, g, part, gn_iters=1, dtype=dtype)
-        sync()
+    with counted_collectives() as counted:
+        with profile(activities=acts) as prof:
+            clocked(mesh, lambda: schur_solve(mesh, g, part, gn_iters=1,
+                                              dtype=dtype))
     table = stage_table(prof, cuda)
     b = bound(part, dtype, peaks)
     if "ms" in b:
-        b["share_of_gn_iteration"] = b["ms"] / (per_gn * 1e3)
+        b["share_of_gn_iteration"] = b["ms"] / (res["t_per_gn_s"] * 1e3)
     sizes = [len(i) for i in part.interiors]
-    return {
-        "states": states, "chi2_initial": g.chi2(), "chi2": chi2,
-        "t_total_s": t_total,
-        "t_gn1_s": t_gn1, "t_per_gn_s": per_gn,
-        "max_memory_allocated": peak, "profile": table, "bound": b,
+    res.update({
+        "chi2_initial": g.chi2(), "chi2": graph_chi2(g, res["states"]),
+        "profile": table, "bound": b,
         "ni_max": part.ni_max, "ni_mean": float(np.mean(sizes)),
         "imbalance": part.ni_max / float(np.mean(sizes)),
-        "ns": part.ns, "nsl": part.nsl,
-        "projection": projection(table, g, part),
-    }
+        "ns": part.ns, "nsl": part.nsl, "counted": dict(counted),
+    })
+    if mesh.size == 1:
+        res["projection"] = projection(table, g, part)
+    return res
+
+
+def stages_rank(mesh, args, meshes: dict = None) -> dict:
+    """Run on each rank of the world `mesh`: the graph, its partition and
+    profile_stages at each mesh size this rank takes part in (`meshes`,
+    from parallel/dist.py:subgroups, made here when not given; the ranks
+    outside a size wait at a barrier).  Rank 0 adds scaling_model's
+    collectives for each size on this partition.  Returns {"rank",
+    "sizes": {k: profile_stages(...) without the states, with "finite"},
+    "model": {k: {kind: [count, bytes]}}}."""
+    import torch
+
+    from .parallel.dist import barrier, subgroups
+    from .parallel.schur import default_sep_dist, partition_graph
+    from .scaling import mesh_sizes
+    from .scaling_model import scaling_graph, trace_collectives
+    from .utils.card import card_peaks
+
+    cuda = mesh.device.type == "cuda"
+    g = scaling_graph(args.poses, args.closure_prob)
+    part = partition_graph(g, args.blocks)
+    dtype = np.float64 if args.dtype == "float64" else np.float32
+    peaks = (card_peaks(torch.cuda.get_device_name(mesh.device))
+             if cuda else None)
+    out = {"rank": mesh.rank, "sizes": {}, "model": {}}
+    sizes = mesh_sizes(mesh.size, args.blocks)
+    meshes = meshes or subgroups(mesh, sizes)
+    for k in sizes:
+        if meshes[k] is not None:
+            res = profile_stages(meshes[k], g, part, args.gn_iters, dtype,
+                                 peaks, out=lambda m: None)
+            res["finite"] = bool(np.all(np.isfinite(res.pop("states"))))
+            out["sizes"][k] = res
+        barrier(mesh)
+    if mesh.rank == 0:
+        for k in sizes:
+            out["model"][k] = trace_collectives(
+                g, part, k, default_sep_dist(part, k), dtype=dtype)
+    return out
+
+
+def waiting(timelines: list) -> list:
+    """Each rank's waiting in its collectives, by stage (ms), from the
+    ranks' collective kernels ([start ns, duration ns, stage] in order of
+    start, the same collectives in the same order on every rank): in
+    collective i a rank waits from its own kernel's start until the last
+    rank's kernel starts, at most the kernel's length.  None where the
+    ranks' lists do not pair up (or hold no kernels: on the CPU)."""
+    n = {len(t) for t in timelines}
+    if len(n) != 1 or 0 in n or any(
+            len({t[i][2] for t in timelines}) != 1
+            for i in range(len(timelines[0]))):
+        return [None] * len(timelines)
+    out = [dict.fromkeys(COMM_STAGES, 0.0) for _ in timelines]
+    for i in range(len(timelines[0])):
+        last = max(t[i][0] for t in timelines)
+        for r, t in enumerate(timelines):
+            start, dur, stage = t[i]
+            out[r][stage] += min(max(last - start, 0), dur) / 1e6
+    return out
+
+
+def combine(results: list) -> dict:
+    """Every rank's figures by size, the waiting in each rank's
+    collectives, the measured T(k) (the slowest rank's per-GN-iteration
+    time) and E(k) = T(1) / (k T(k)) beside the projection from the
+    one-rank stages, and the collectives counted on each rank beside
+    scaling_model's."""
+    sizes = sorted(results[0]["sizes"])
+    by_size = {k: [r["sizes"][k] for r in results if k in r["sizes"]]
+               for k in sizes}
+    for k, ranks in by_size.items():
+        waits = waiting([r["profile"].pop("collectives") for r in ranks])
+        for r, w in zip(ranks, waits):
+            r["profile"]["waiting_ms"] = w
+    T = {k: max(r["t_per_gn_s"] for r in ranks) * 1e3
+         for k, ranks in by_size.items()}
+    proj = {p["ndev"]: p for p in by_size[1][0].get("projection", [])}
+    measured = []
+    for k in sizes:
+        row = {"ndev": k, "T_ms": T[k], "E": T[1] / (k * T[k])}
+        if k in proj:
+            row.update(projected_E=proj[k]["E"],
+                       projected_E_with_rest=proj[k]["E_with_rest"])
+        measured.append(row)
+    model = results[0]["model"]
+    collectives = {k: {"counted": [r["counted"] for r in ranks],
+                       "model": model[k],
+                       "equal": all(r["counted"] == model[k]
+                                    for r in ranks)}
+                   for k, ranks in by_size.items()}
+    return {"sizes": by_size, "measured": measured,
+            "collectives": collectives}
 
 
 def report(res: dict, out=print) -> None:
-    """The stage table, the idle share, the memory, the bound and the
-    projection."""
+    """The stage table (with the waiting in the collectives where it was
+    measured), the idle share, the memory, the bound and, for one rank,
+    the projection."""
     p = res["profile"]
+    waits = p.get("waiting_ms")
     out(f"profiled iteration: {p['iteration_ms']:.3f} ms "
         f"(per-GN-iteration unprofiled {res['t_per_gn_s'] * 1e3:.3f} ms)")
-    out(f"{'stage':<22}{'ms':>12}{'launches':>10}{'share':>8}")
+    out(f"{'stage':<22}{'ms':>12}{'launches':>10}{'share':>8}"
+        + (f"{'waiting ms':>12}" if waits else ""))
     for s, v in p["stages"].items():
+        w = f"{waits[s]:>12.3f}" if waits and s in waits else ""
         out(f"{s:<22}{v['ms']:>12.3f}{v['launches']:>10}"
-            f"{v['share']:>8.3f}")
+            f"{v['share']:>8.3f}{w}")
     out(f"{'outside any kernel':<22}{p['idle_ms']:>12.3f}{'':>10}"
         f"{p['idle_share']:>8.3f}")
     if p["ambiguous_kernels"]:
@@ -326,7 +478,9 @@ def report(res: dict, out=print) -> None:
         out("bound: not measured (no card)")
     out(f"imbalance ni_max / ni_mean: {res['ni_max']} / "
         f"{res['ni_mean']:.1f} = {res['imbalance']:.3f}")
-    out("projection (no communication time: no link measured):")
+    if "projection" not in res:
+        return
+    out("projection from one rank's stages (no communication time):")
     for r in res["projection"]:
         mb = "".join(f"  {k[3:]} {v:.2f} MB" for k, v in r.items()
                      if k.startswith("MB_"))
@@ -334,47 +488,73 @@ def report(res: dict, out=print) -> None:
             f"E with the rest {r['E_with_rest']:.4f}{mb}")
 
 
+def _hits_line(hits: dict) -> str:
+    return ", ".join(f"{kind} {c} x, {b / 1e6:.4f} MB"
+                     for kind, (c, b) in sorted(hits.items()))
+
+
+def report_ranks(comb: dict, out=print) -> None:
+    """Each size's table for each rank, the measured efficiency beside the
+    projection, and the counted collectives beside the model's."""
+    for k, ranks in comb["sizes"].items():
+        for r, res in enumerate(ranks):
+            out(f"--- {k} rank{'s' if k > 1 else ''}, rank {r}:")
+            report(res, out)
+    out("measured (the slowest rank) against the projection:")
+    for m in comb["measured"]:
+        proj = (f"  projected E {m['projected_E']:.4f}, with the rest "
+                f"{m['projected_E_with_rest']:.4f}"
+                if "projected_E" in m else "")
+        out(f"  ndev={m['ndev']}: T {m['T_ms']:.3f} ms  E {m['E']:.4f}"
+            f"{proj}")
+    for k, c in comb["collectives"].items():
+        out(f"collectives per iteration at {k} rank{'s' if k > 1 else ''}"
+            f" ({'equal to' if c['equal'] else 'NOT equal to'} the "
+            "model's on every rank):")
+        out(f"  counted on rank 0: {_hits_line(c['counted'][0])}")
+        out(f"  scaling_model:     {_hits_line(c['model'])}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    import torch
-
     from .parallel import one_rank_group
-    from .parallel.schur import partition_graph
-    from .scaling_model import scaling_graph
+    from .parallel.dryrun import run_ranks
     from .utils import resolve_device
-    from .utils.card import card_line, card_peaks
+    from .utils.card import card_line, link_line
 
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     card = card_line() if cuda else None
+    link = link_line() if cuda and args.ranks else None
     print(f"platform: {'gpu' if cuda else 'cpu'}"
-          + (f" ({card})" if card else ""), flush=True)
+          + (f" ({card}; {link})" if link else
+             f" ({card})" if card else ""), flush=True)
     t0 = time.perf_counter()
-    g = scaling_graph(args.poses, args.closure_prob)
-    print(f"generated {g.nnodes}/{g.nfactors} in "
+    if args.ranks:
+        results = run_ranks(stages_rank, args.ranks, args, timeout=3600.0,
+                            device=device.type)
+    else:
+        with one_rank_group(device) as mesh:
+            results = [stages_rank(mesh, args)]
+    print(f"{len(results)} rank{'s' if len(results) > 1 else ''} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    t0 = time.perf_counter()
-    part = partition_graph(g, args.blocks)
-    print(f"partition: B={part.B} ni_max={part.ni_max} ns={part.ns} "
-          f"nsl={part.nsl} ({time.perf_counter() - t0:.1f}s host)",
-          flush=True)
-    dtype = np.float64 if args.dtype == "float64" else np.float32
-    with one_rank_group(device) as mesh:
-        peaks = (card_peaks(torch.cuda.get_device_name(mesh.device))
-                 if cuda else None)
-        res = profile_stages(mesh, g, part, args.gn_iters, dtype, peaks,
-                             out=lambda m: print(m, flush=True))
-    report(res, out=lambda m: print(m, flush=True))
-    print(json.dumps({k: v for k, v in res.items() if k != "states"}),
-          flush=True)
+    comb = combine(results)
+    report_ranks(comb, out=lambda m: print(m, flush=True))
+    one = comb["sizes"][1][0]
+    top = comb["measured"][-1]["ndev"]
+    last = comb["sizes"][top][0]
+    print(json.dumps({**one, "ranks": args.ranks or 1, "link": link,
+                      "measured": comb["measured"],
+                      "collectives": comb["collectives"],
+                      "by_size": comb["sizes"]}), flush=True)
     print(json.dumps({
-        "poses": args.poses, "blocks": args.blocks, "ns": part.ns,
-        "ni_max": part.ni_max, "platform": "gpu" if cuda else "cpu",
-        "card": card, "dtype": args.dtype,
-        "t_total_s": round(res["t_total_s"], 2),
-        "t_per_gn_s": round(res["t_per_gn_s"], 2),
-        "final_chi2": round(float(res["chi2"]), 2),
+        "poses": args.poses, "blocks": args.blocks, "ns": last["ns"],
+        "ni_max": last["ni_max"], "platform": "gpu" if cuda else "cpu",
+        "card": card, "dtype": args.dtype, "ranks": top,
+        "t_total_s": round(last["t_total_s"], 2),
+        "t_per_gn_s": round(comb["measured"][-1]["T_ms"] / 1e3, 2),
+        "final_chi2": round(float(last["chi2"]), 2),
     }), flush=True)
     return 0
 

@@ -125,7 +125,27 @@ must be equal: one replay per dispatch, none eager.
      host BatchSolver's (SCHUR_TOL["chi2_rel_vs_batch"]); and the
      communication model (scaling_model.py) at 100 000 poses on the host,
      its six rows;
- 17. one JSON line listing every ported kernel, with K1's launches on each
+ 17. multicard, on every card of the machine, one NCCL rank per card in
+     one spawned world (aprilsam_tpu_torch/multicard.py; mesh sizes 1, 2
+     and, with four cards, 4, each the sub-group of the first ranks):
+     the dry run at each size above 1 held to the JAX package's
+     multi-device golden (golden/multicard_jax.npz: each separator mode
+     within twice JAX's own float32 error, the dp dx norm within relative
+     1e-3); schur_solve on phase 12's and phase 16's 100 000-pose graphs
+     in 64 blocks, float64 and float32, both separator modes, at every
+     size against one rank (float64 norm-wise 1e-8 and chi2 1e-9; float32
+     5e-2 and 1e-2) and in float64 against the host BatchSolver (chi2
+     1e-5), with ms per iteration, E(k) and each rank's peak memory; the
+     scaling bench at its defaults in float64 and float32, chi2 at every
+     size within SCALING_TOL of the golden; the stage profile at every
+     size with every rank profiled, the waiting in the collectives, the
+     measured E(k) beside the projection, and the collectives each rank
+     issued against scaling_model's; every rank's states bit-identical;
+     then examples/distributed_solve.py in float64 under torchrun on
+     every card, its final chi2 within relative 1e-9 of the same example
+     on one rank.  On a machine with one card it prints that it needs two
+     and runs nothing;
+ 18. one JSON line listing every ported kernel, with K1's launches on each
      path and by shape, and their launch-weighted kernel and library
      times; the card's line; and the result line
      {"ok": true, "device": {...}}.
@@ -142,6 +162,8 @@ import io
 import json
 import os
 import re
+import signal
+import subprocess
 import sys
 import tempfile
 import time
@@ -1377,6 +1399,101 @@ def run_scaling(K, card: str) -> dict:
     return dict(K.launches_by_shape)
 
 
+def run_multicard(card: str) -> dict:
+    """Phase 17, on every card of the machine, one NCCL rank per card in
+    one spawned world (parallel/dryrun.py:run_ranks): multicard.py's full
+    spec, held to the JAX package's multi-device golden and to one rank
+    (multicard.check); then examples/distributed_solve.py in float64
+    under torchrun on every card, its chi2 held to the same example's on
+    one rank.  On a machine with one card it prints that it needs two and
+    runs nothing.  Returns K1's launches by shape, summed over the
+    ranks (none expected: the distributed solve runs no K1)."""
+    from aprilsam_tpu_torch.multicard import (SOLVE_TOL, Spec, check,
+                                              multicard_rank, read_golden)
+    from aprilsam_tpu_torch.parallel.dryrun import run_ranks
+    from aprilsam_tpu_torch.schur_stages import report_ranks
+    from aprilsam_tpu_torch.utils.card import link_line
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"multicard: needs at least two cards; this machine has {n}",
+              flush=True)
+        return {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    link = link_line()
+    spec = Spec(sizes=tuple(sorted({1, 2, n} | ({4} if n >= 4 else set()))))
+    t = time.perf_counter()
+    results = run_ranks(multicard_rank, n, spec, timeout=900.0,
+                        device="cuda")
+    world_s = time.perf_counter() - t
+    summary, bad = check(results, read_golden())
+    stages = summary.pop("stages")
+    report_ranks(stages, out=lambda m: print(m, flush=True))
+    for key, row in summary["solves"].items():
+        peaks = ", ".join(f"{(b or 0) / 1e9:.3f}" for b in row["peak_bytes"])
+        print(f"multicard {key}: {row['ms_per_iter']:.3f} ms per iteration,"
+              f" E {row['E']:.4f}, peak GB by rank [{peaks}]", flush=True)
+    for dt, row in summary["bench"].items():
+        print(f"multicard bench {dt}: " + ", ".join(
+            f"E({k}) {e:.4f}" for k, e in row["E"].items()), flush=True)
+    print(json.dumps({
+        "phase": "multicard", "card": card, "link": link, "cards": n,
+        "sizes": spec.sizes, **summary,
+        "stages_measured": stages["measured"],
+        "stages_collectives": {k: {"counted": c["counted"][0],
+                                   "model": c["model"], "equal": c["equal"]}
+                               for k, c in stages["collectives"].items()},
+        "partitions": {k: v for k, v in results[0].items()
+                       if k.startswith("partition")},
+        "rank_seconds": [r["seconds"] for r in results],
+        "world_s": world_s}, default=str), flush=True)
+
+    # the example in float64 on every card under torchrun, in a session of
+    # its own so that a timeout ends every process it started, held to the
+    # same example on one rank (this process)
+    from aprilsam_tpu_torch.examples import distributed_solve
+
+    t = time.perf_counter()
+    example = ["-m", "aprilsam_tpu_torch.examples.distributed_solve",
+               "--dtype", "float64"]
+    with contextlib.redirect_stdout(io.StringIO()) as one:
+        chi2_one = distributed_solve.main(example[2:])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), *example]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=REPO),
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    lines = out.strip().splitlines()
+    tol = SOLVE_TOL["float64"]["chi2_rel"]
+    rel = None
+    if proc.returncode == 0 and lines and lines[0].startswith(
+            f"ranks: {n},"):
+        rel = abs(float(lines[-1].split("chi2 ")[1]) - chi2_one) / chi2_one
+    print(json.dumps({"phase": "multicard-torchrun", "card": card,
+                      "link": link, "command": " ".join(cmd[1:]),
+                      "rc": proc.returncode, "lines": lines,
+                      "one_rank": one.getvalue().strip().splitlines(),
+                      "chi2_rel_vs_one_rank": rel, "tol": tol,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    if rel is None or not rel <= tol:
+        bad.append(f"torchrun example: rc {proc.returncode}, "
+                   f"{lines[-3:]} against one rank's chi2 {chi2_one}, "
+                   f"{err[-2000:]}")
+    if bad:
+        raise AssertionError("phase 17: " + "; ".join(bad))
+    launches = Counter()
+    for r in results:
+        launches.update(r["tri_inv_launches"])
+    return dict(launches)
+
+
 def epochs_of(counters: dict) -> dict:
     return {k: counters[f"epoch_{k}"] for k in ("panel", "dense", "host")}
 
@@ -1738,11 +1855,15 @@ def main() -> int:
 
     # 16. the scaling tools of the distributed solve
     paths["scaling"] = phase("scaling", run_scaling, K, smi)
+
+    # 17. the distributed solves across every card of the machine
+    paths["multicard"] = phase("multicard", run_multicard, smi)
+
+    # 18. the kernels line, the card, the result; K1's share of each
+    # replay is its launches at each shape times that shape's time from
+    # phase 3
     print(json.dumps({"phase_seconds": "all",
                       "seconds": time.perf_counter() - t_start}), flush=True)
-
-    # 17. the kernels line, the card, the result; K1's share of each replay
-    # is its launches at each shape times that shape's time from phase 3
     for counts in paths.values():
         for key in counts:
             if key not in rows:

@@ -55,7 +55,7 @@ def test_port_has_the_slice_modules():
               "parallel.schur", "parallel.dryrun", "examples.tutorial",
               "examples.graph_save_load", "examples.distributed_solve",
               "large_inc", "scaling", "scaling_model", "schur_stages",
-              "utils.card"):
+              "utils.card", "multicard"):
         assert f"aprilsam_tpu_torch.{m}" in mods, m
     assert os.path.exists(os.path.join(PKG, "csrc", "tri_inv.cu"))
 

@@ -235,7 +235,7 @@ def test_schur_stages_cli_on_the_cpu():
     ("schur.backsub", "aten::linalg_solve_triangular", "trsv_kernel",
      "back-substitution"),
     ("schur.backsub", "c10d::_allgather_base_",
-     "ncclDevKernel_AllGather_RING_LL", "other"),
+     "ncclDevKernel_AllGather_RING_LL", "interiors gather"),
     ("schur.gn_step", "aten::copy_", "Memcpy DtoH", "other"),
 ])
 def test_stage_classification(rng, op, name, stage):

@@ -10,7 +10,7 @@ is PyTorch, and the TPU's Pallas kernel is a hand-written CUDA kernel
 
 from .graph import Attributes, FactorGraph, FACTOR_XYT, FACTOR_XYTPOS
 from .geometry import mod2pi, xyt_inv, xyt_inv_mul, xyt_mul
-from .io import load_g2o_text
+from .io import load_g2o_text, load_graph_file, save_graph_file
 from .solver import BatchSolver, IncrementalSolver, SolverConfig
 
 __version__ = "0.1.0"
@@ -25,6 +25,8 @@ __all__ = [
     "xyt_inv",
     "xyt_inv_mul",
     "load_g2o_text",
+    "load_graph_file",
+    "save_graph_file",
     "BatchSolver",
     "IncrementalSolver",
     "SolverConfig",

@@ -44,6 +44,8 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 REPLACES = "aprilsam_tpu/kernels/pallas_tri.py:96"
 
 TILE = 48                  # diagonal tile (BLK of pallas_tri.py)
+# the device kernels of one call, as a profiler names them
+KERNEL_NAMES = ("diag_kernel", "strip_kernel")
 
 
 launches = 0        # calls that launched the kernel since reset_launches()

@@ -88,15 +88,17 @@ def large_config(args, device, **overrides):
     return SolverConfig(**kw)
 
 
-def make_replay(args, **overrides):
-    """The script's graph and a deferred Replay of it under large_config."""
+def make_replay(args, seed: int = 0, **overrides):
+    """The script's graph (generated from `seed`) and a deferred Replay of
+    it under large_config."""
     from .datasets import manhattan_world
     from .replay import Replay
     from .utils import resolve_device
 
     device = resolve_device(args.device)
-    g = manhattan_world(args.poses, seed=0, closure_prob=args.closure_prob,
-                        block=25, max_closures_per_pose=1)
+    g = manhattan_world(args.poses, seed=seed,
+                        closure_prob=args.closure_prob, block=25,
+                        max_closures_per_pose=1)
     cfg = large_config(args, device, **overrides)
     return Replay(g, cfg, batch_update_only=False, deferred=True,
                   device=device)

@@ -1,24 +1,27 @@
 """The distributed solves across several ranks, held to the JAX package's
 multi-device figures: what ``chip_smoke.py`` runs on every card of a
-machine (one NCCL rank per card) and ``tests/test_torch_multicard.py`` on
-gloo ranks of the CPU.
+machine (one NCCL rank per card), the bench's 4-card cell
+(``bench.py:run_schur``, one graph, dtype and mode) and
+``tests/test_torch_multicard.py`` on gloo ranks of the CPU.
 
 One world of N ranks runs, on the sub-groups of ranks 0..k-1 for each mesh
 size k of ``Spec.sizes`` (``parallel/dist.py:subgroups``, made once and
 shared by every part below; the others wait at a barrier):
-  * the dry run (``parallel/dryrun.py:dryrun_multichip``) at each k > 1,
+  * with ``Spec.dryrun``, the dry run
+    (``parallel/dryrun.py:dryrun_multichip``) at each k > 1,
     its 512*k-pose states and dp dx norm held to the JAX package's on its
     k-device mesh (``golden/multicard_jax.npz``, made by
     ``tests/make_multicard_golden.py``);
   * ``schur_solve`` of each graph of ``Spec.graphs`` in ``Spec.blocks``
-    blocks, in each dtype and separator mode, at every k: ms per
-    Gauss-Newton iteration (``schur_stages.py:iteration_times``: the
-    median of three 2-iteration solves minus 1-iteration ones, each clock
-    started after a barrier and the slowest rank's, after a warm solve
-    that makes the group's first collectives), each rank's peak device
-    memory, and the states held
-    to the one-rank solve's and, in float64, chi2 to the host
-    BatchSolver's;
+    blocks, in each of ``Spec.dtypes`` and ``Spec.modes``, at every k:
+    ms per Gauss-Newton iteration (``schur_stages.py:iteration_times``:
+    the median of ``Spec.repeats`` 2-iteration solves minus 1-iteration
+    ones, each clock started after a barrier and the slowest rank's,
+    after a warm solve that makes the group's first collectives), each
+    rank's peak device memory, and the states held to the one-rank
+    solve's and, in float64, chi2 to the host BatchSolver's; with
+    ``Spec.profile``, one more 1-iteration solve under torch.profiler
+    (each rank's stage table and collectives);
   * ``scaling.py:bench_rank`` (bench_scaling.py at its defaults) in each
     dtype of ``Spec.bench_dtypes``, chi2 at each size held to the
     golden's;
@@ -67,7 +70,11 @@ DTYPES = ("float64", "float32")
 @dataclasses.dataclass(frozen=True)
 class Spec:
     """What one world runs.  `graphs` maps a name to manhattan_world's
-    arguments; no bench dtypes, no bench."""
+    arguments, solved in each of `dtypes` and `modes` (keys of MODES) at
+    each of `sizes` (ascending: 1 first, the reference of the others),
+    timed over `repeats` pairs and, with `profile`, once more under
+    torch.profiler (schur_stages.profile_iteration); no dry run without
+    `dryrun`, no bench dtypes, no bench."""
 
     sizes: tuple = (1, 2, 4)
     graphs: tuple = (
@@ -76,6 +83,11 @@ class Spec:
                          block=25, max_closures_per_pose=1)),
     )
     blocks: int = 64
+    dtypes: tuple = DTYPES
+    modes: tuple = tuple(MODES)
+    dryrun: bool = True
+    repeats: int = 3               # schur_stages.REPEATS
+    profile: bool = False
     bench_dtypes: tuple = ("float64", "float32")
     stages: bool = True
 
@@ -127,7 +139,7 @@ def multicard_rank(mesh, spec: Spec) -> dict:
         k for a in tools for k in scaling.mesh_sizes(mesh.size, a.blocks)])
 
     t = time.perf_counter()
-    for k in sizes:
+    for k in sizes if spec.dryrun else ():
         if k > 1 and r < k:
             states = {}
             dry = dryrun_multichip(meshes[k], states)
@@ -151,16 +163,23 @@ def multicard_rank(mesh, spec: Spec) -> dict:
         one = {}
         for k in sizes:
             if r < k:
-                for dt in DTYPES:
-                    for mode, sep_dist in MODES.items():
+                for dt in spec.dtypes:
+                    for mode in spec.modes:
+                        args = (meshes[k], g, part, getattr(np, dt),
+                                MODES[mode])
                         it = schur_stages.iteration_times(
-                            meshes[k], g, part, getattr(np, dt), sep_dist)
+                            *args, repeats=spec.repeats)
                         st = it["states"]
                         res = {"ms_per_iter": it["t_per_gn_s"] * 1e3,
                                "runs_s": it["runs_s"],
+                               "t_gn1_s": it["t_gn1_s"],
                                "peak_bytes": it["max_memory_allocated"],
                                "digest": _digest(st),
                                "finite": bool(np.all(np.isfinite(st)))}
+                        if spec.profile:
+                            res["profile"], res["counted"], \
+                                res["profiled_s"] = \
+                                schur_stages.profile_iteration(*args)
                         if r == 0:
                             res["chi2"] = graph_chi2(g, st)
                             if k == 1:

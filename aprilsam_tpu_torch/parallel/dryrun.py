@@ -175,8 +175,8 @@ def _stop(procs, grace: float) -> None:
             p.join()
 
 
-def run_ranks(fn, world_size: int, *args, timeout: float = 600.0,
-              device: str = "cpu",
+def run_ranks(fn, world_size: int, *args, device: str,
+              timeout: float = 600.0,
               collective_timeout: float = COLLECTIVE_TIMEOUT_S) -> list:
     """Run fn(mesh, *args) on each rank of a world of `world_size` spawned
     processes (fn and args must pickle, fn by import path): gloo ranks on

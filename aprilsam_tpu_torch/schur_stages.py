@@ -271,8 +271,8 @@ def projection(table: dict, g, part) -> list:
 
 
 def iteration_times(mesh, g, part, dtype, sep_dist=None,
-                    gn_iters: int = 2) -> dict:
-    """The JAX script's timings of schur_solve on `mesh`, REPEATS times
+                    gn_iters: int = 2, repeats: int = REPEATS) -> dict:
+    """The JAX script's timings of schur_solve on `mesh`, `repeats` times
     over: after a warm full solve (the group's first collectives), a full
     `gn_iters` solve and a gn_iters=1 solve, each clock started after a
     barrier and ended on every rank's card.  Per Gauss-Newton iteration:
@@ -295,13 +295,13 @@ def iteration_times(mesh, g, part, dtype, sep_dist=None,
     if cuda:
         torch.cuda.reset_peak_memory_stats(mesh.device)
     full, one = [], []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         t, states = clocked(mesh, lambda: solve(gn_iters))
         full.append(t)
         one.append(clocked(mesh, lambda: solve(1))[0])
     peak = torch.cuda.max_memory_allocated(mesh.device) if cuda else None
     both = slowest(mesh, full + one)
-    full, one = both[:REPEATS], both[REPEATS:]
+    full, one = both[:repeats], both[repeats:]
     per_gn = [(a - b) / max(1, gn_iters - 1) for a, b in zip(full, one)]
     return {"t_total_s": float(np.median(full)),
             "t_gn1_s": float(np.median(one)),
@@ -317,27 +317,14 @@ def profile_stages(mesh, g, part, gn_iters: int = 2, dtype=np.float32,
     bound).  Returns every figure, the final states, the collectives this
     rank issued in the profiled iteration ({kind: [count, bytes]}, kinds
     as scaling_model's) and, on a mesh of one rank, the projection."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from .parallel.dist import clocked
-    from .parallel.schur import schur_solve
     from .scaling import graph_chi2
-    from .scaling_model import counted_collectives
 
-    cuda = mesh.device.type == "cuda"
     res = iteration_times(mesh, g, part, dtype, gn_iters=gn_iters)
     for i, (full, one) in enumerate(res["runs_s"]):
         out(f"run {i}: full solve {full:.2f}s, gn_iters=1 {one:.2f}s")
     out(f"per-GN-iteration {res['t_per_gn_s']:.2f}s (the median of "
         f"{len(res['runs_s'])})")
-
-    # the barrier's kernel and its wait stay out of the profiled iteration
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with counted_collectives() as counted:
-        with profile(activities=acts) as prof:
-            clocked(mesh, lambda: schur_solve(mesh, g, part, gn_iters=1,
-                                              dtype=dtype))
-    table = stage_table(prof, cuda)
+    table, counted, _secs = profile_iteration(mesh, g, part, dtype)
     b = bound(part, dtype, peaks)
     if "ms" in b:
         b["share_of_gn_iteration"] = b["ms"] / (res["t_per_gn_s"] * 1e3)
@@ -352,6 +339,28 @@ def profile_stages(mesh, g, part, gn_iters: int = 2, dtype=np.float32,
     if mesh.size == 1:
         res["projection"] = projection(table, g, part)
     return res
+
+
+def profile_iteration(mesh, g, part, dtype, sep_dist=None) -> tuple:
+    """One gn_iters=1 schur_solve on `mesh` under torch.profiler (its
+    clock started after a barrier, as iteration_times' are): its
+    stage_table, the collectives this rank issued ({kind: [count,
+    bytes]}, kinds as scaling_model's) and the profiled solve's seconds
+    on this rank."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from .parallel.dist import clocked
+    from .parallel.schur import schur_solve
+    from .scaling_model import counted_collectives
+
+    cuda = mesh.device.type == "cuda"
+    # the barrier's kernel and its wait stay out of the profiled iteration
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with counted_collectives() as counted:
+        with profile(activities=acts) as prof:
+            secs, _ = clocked(mesh, lambda: schur_solve(
+                mesh, g, part, gn_iters=1, dtype=dtype, sep_dist=sep_dist))
+    return stage_table(prof, cuda), dict(counted), secs
 
 
 def stages_rank(mesh, args, meshes: dict = None) -> dict:

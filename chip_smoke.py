@@ -107,7 +107,8 @@ must be equal: one replay per dispatch, none eager.
      (each superstep dispatch waited for) the final chi2 within 0.05; then
      the script's defaults (float32, 20 000 poses, start capacity 4096 ->
      32768) with every checkpoint finite and the final chi2 within
-     LARGE_F32_REL of the float64 lagged one; each replay's growths (step,
+     the bench's GATE_TOL["large"] of the float64 lagged one (relative;
+     aprilsam_tpu_torch/bench.py); each replay's growths (step,
      capacities, host ms, memory reserved before and after), graphs
      captured and capture seconds per generation, epochs by backend (the
      step of each that was not a panel epoch) and K1's launches by shape
@@ -145,7 +146,13 @@ must be equal: one replay per dispatch, none eager.
      every card, its final chi2 within relative 1e-9 of the same example
      on one rank.  On a machine with one card it prints that it needs two
      and runs nothing;
- 18. one JSON line listing every ported kernel, with K1's launches on each
+ 18. the benchmark (aprilsam_tpu_torch/bench.py) as a user runs it, one
+     process per cell with one timed run and its traced run: the per-step,
+     S = 96 and large-N cells, and on a machine with four cards the 4-card
+     cell; each exits 0 with its gate passed (the per-step census, the
+     goldens' chi2), and K1's launches of each timed run join the kernels
+     line (paths bench-<cell>);
+ 19. one JSON line listing every ported kernel, with K1's launches on each
      path and by shape, and their launch-weighted kernel and library
      times; the card's line; and the result line
      {"ok": true, "device": {...}}.
@@ -188,13 +195,6 @@ F32_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
                           "manhattan3500_seed0_f32.txt")
 LARGE_GOLDEN = os.path.join(REPO, "aprilsam_tpu_torch", "golden",
                             "manhattan20000_large.txt")
-# phase 15: the float32 replay at the large-N script's defaults against the
-# float64 golden's lagged final chi2, relative.  Its lagged policy reads
-# the newest *ready* stats, so the trajectory depends on timing: the bound
-# is the spread that policy timing makes, the float64 lag-0 and lagged
-# finals (271.84 and 273.13, 0.47 %).  Two float32 runs on an H100 80GB
-# HBM3 at 700 W read 0.012 % and 0.016 %.
-LARGE_F32_REL = 0.005
 # phase 13: graphs against eager on AOT_POSES poses, the profiler over
 # steps AOT_WINDOW of the per-step and bundled replays
 AOT_POSES = 3500
@@ -440,26 +440,20 @@ def run_tutorial() -> None:
 
 
 def read_golden(path: str = GOLDEN):
-    steps, paths, chi2 = [], [], []
-    with open(path) as f:
-        for line in f:
-            if line.startswith("#"):
-                continue
-            k, p, c = line.split()
-            steps.append(int(k))
-            paths.append(p)
-            chi2.append(float(c))
-    if steps != list(range(len(steps))):
-        raise AssertionError("golden file steps are not 0..n-1")
-    return paths, np.asarray(chi2)
+    from aprilsam_tpu_torch.bench import read_golden as read
+
+    return read(path)
 
 
 def check_replay(K, name: str, card: str, rep, res, secs: float,
                  first: int, extra: dict) -> dict:
     """Hold steps first.. of a per-step replay of the golden's graph to the
-    golden: chi2 per step from the metric ring, the path per step, the
-    census, and tri_inv launched once per full-path dispatch.  Returns the
-    launches by (B, N, dtype name)."""
+    golden (the bench's gate, aprilsam_tpu_torch/bench.py:hold_per_step):
+    chi2 per step from the metric ring, the path per step, the census; and
+    tri_inv launched once per full-path dispatch.  Returns the launches by
+    (B, N, dtype name)."""
+    from aprilsam_tpu_torch.bench import hold_per_step
+
     gold_paths, gold_chi2 = read_golden()
     n = len(gold_paths)
     launches = K.launches
@@ -468,45 +462,25 @@ def check_replay(K, name: str, card: str, rep, res, secs: float,
     if len(res) != n - first or hist.shape != (n,):
         raise AssertionError(f"{name}: {len(res)} steps, {hist.shape} chi2 "
                              f"entries; golden has {n}")
-    hist, gold_chi2, gold_paths = hist[first:], gold_chi2[first:], \
-        gold_paths[first:]
-    paths = [r.path for r in res]
-    if not np.all(np.isfinite(hist)):
-        raise AssertionError(f"{name}: non-finite chi2 in the replay")
-    # relative 1e-6; chi2 values at rounding level of zero (the first steps,
-    # ~1e-28) are compared absolutely
-    diff = np.abs(hist - gold_chi2)
-    bad = np.nonzero(diff > 1e-6 * np.abs(gold_chi2) + 1e-12)[0]
-    census = {p: paths.count(p) for p in ("fast", "full", "batch")}
-    gold_census = {p: gold_paths.count(p) for p in ("fast", "full", "batch")}
-    path_mismatch = sum(a != b for a, b in zip(paths, gold_paths))
+    held = hold_per_step(hist[first:], [r.path for r in res],
+                         gold_chi2[first:], gold_paths[first:])
+    bad = held.pop("bad")
     full_dispatches = rep.solver.counters["full"]
     steps = n - first
     summary = {
         "phase": name, "graph": f"manhattan_world({n}, seed=0)",
         "dtype": "float64", "card": card, "steps": f"{first}..{n - 1}",
         "seconds": secs, "poses_per_s": steps / secs,
-        "mean_step_ms": secs * 1e3 / steps, **extra,
-        "final_chi2": float(hist[-1]), "golden_final_chi2": gold_chi2[-1],
-        "max_rel_chi2_err": float(np.max(diff / np.maximum(
-            np.abs(gold_chi2), 1e-12))),
-        "census": census, "golden_census": gold_census,
-        "per_step_path_mismatches": path_mismatch,
+        "mean_step_ms": secs * 1e3 / steps, **extra, **held,
         "full_dispatches": full_dispatches, "tri_inv_launches": launches,
         "tri_inv_launches_by_shape": [
             {"shape": [B, N, N], "dtype": dt, "launches": c}
             for (B, N, dt), c in sorted(by_shape.items())],
     }
     print(json.dumps(summary), flush=True)
-    if len(bad):
-        k = int(bad[0])
-        raise AssertionError(
-            f"{name}: chi2 differs from the golden at {len(bad)} steps; first "
-            f"at step {first + k}: {hist[k]!r} vs {gold_chi2[k]!r}")
-    if census != gold_census or path_mismatch:
-        raise AssertionError(f"{name}: census {census} != golden "
-                             f"{gold_census}, {path_mismatch} paths differ")
-    if launches != full_dispatches or launches < gold_census["full"] \
+    if bad:
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+    if launches != full_dispatches or launches < held["census"]["full"] \
             or launches == 0:
         raise AssertionError(
             f"{name}: tri_inv launched {launches} times for "
@@ -518,37 +492,23 @@ def check_replay(K, name: str, card: str, rep, res, secs: float,
 
 
 def prepare_graphs(solver, nnodes: int = 3500) -> dict:
-    """Capture the solver's graphs for an nnodes-pose replay: precompile
-    (its step, superstep and bundle signatures) and the ladder of its
-    batch epoch's expansion (host epochs) or dense epoch (device
-    backends); then zero its dispatch counts.  First frees the solvers
+    """Capture the solver's graphs for an nnodes-pose replay
+    (aprilsam_tpu_torch/bench.py:prepare: precompile, and the ladder of
+    its batch epoch's expansion (host epochs) or dense epoch (device
+    backends)); then zero its dispatch counts.  First frees the solvers
     and graphs of earlier replays (the phases' wrappers make reference
     cycles), so that every timed replay starts from the same process
     state.  Returns the counts and seconds."""
-    from aprilsam_tpu_torch.solver.batch import precompile_device_batch
-    from aprilsam_tpu_torch.solver.host_batch import precompile_expand
-    from aprilsam_tpu_torch.solver.panel_epoch import precompile_panel_epoch
+    from aprilsam_tpu_torch.bench import prepare
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    sigs = solver.precompile(nnodes=nnodes)
-    cfg = solver.cfg
-    if cfg.batch_backend in ("device", "panel"):
-        rungs = precompile_device_batch(solver.ds, cfg, nnodes,
-                                        solver.graphs)
-        if cfg.batch_backend == "panel":
-            rungs += precompile_panel_epoch(solver.ds, cfg, nnodes,
-                                            solver.graphs)
-    else:
-        rungs = precompile_expand(solver.ds, cfg, nnodes, solver.graphs)
-    torch.cuda.synchronize()
+    out = prepare(solver, nnodes)
     g = solver.graphs
     g.calls.clear()
     g.replayed.clear()
-    return {"signatures": sigs, "epoch_signatures": rungs,
-            "graphs": len(g.graphs), "seconds": time.perf_counter() - t}
+    return out
 
 
 def graph_use(solver, name: str, prepared: dict) -> dict:
@@ -742,21 +702,9 @@ def run_distributed(card: str) -> None:
 
 
 def read_super_golden(path: str = SUPER_GOLDEN):
-    """A superstep or bundled golden: its header ({key: json}), its ring
-    entries, and the pose count of its graph."""
-    head, ring, poses = {}, [], None
-    with open(path) as f:
-        for line in f:
-            if line.startswith("# "):
-                m = re.match(r"# manhattan_world\((\d+), seed=0\)", line)
-                if m:
-                    poses = int(m.group(1))
-                key, _, val = line[2:].partition(" ")
-                if val.startswith("{"):
-                    head[key] = json.loads(val)
-                continue
-            ring.append(float(line.split()[1]))
-    return head, np.asarray(ring), poses
+    from aprilsam_tpu_torch.bench import read_super_golden as read
+
+    return read(path)
 
 
 def golden_config(entry: dict):
@@ -850,10 +798,12 @@ class DispatchTimer:
 
 def device_window(fn) -> dict:
     """fn() under torch.profiler: its wall seconds (ending in a
-    synchronize), the device-side self time summed over the device rows
+    synchronize), the device-side time summed over the device records
     (kernels, copies, sets; one stream), the idle share, and the device
     events."""
     from torch.profiler import ProfilerActivity, profile
+
+    from aprilsam_tpu_torch.utils.trace import device_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -861,21 +811,11 @@ def device_window(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    busy_us, events = 0.0, 0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = next((float(getattr(e, k)) for k in (
-            "self_device_time_total", "self_cuda_time_total")
-            if getattr(e, k, None) is not None), 0.0)
-        if us > 0:
-            busy_us += us
-            events += e.count
-    if events == 0:
-        raise AssertionError("the profiler recorded no device-side rows")
+    dev = device_rows(prof)
+    busy_us = sum(us for _n, us, _c in dev)
     return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / 1e6 / wall,
-            "device_events": events}
+            "device_events": sum(c for _n, _us, c in dev)}
 
 
 def aot_replay(K, cfg, deferred: bool, mode: str, graphs: bool) -> dict:
@@ -1186,10 +1126,11 @@ def run_large(K, card: str) -> dict:
     backend equal to the golden's; the script's lag (each superstep
     dispatch waited for) within CHI2_BAND of the golden's lagged final.
     Then the script's own defaults (float32, 20 000 poses): every
-    checkpoint finite, final ncap 32768, final chi2 within LARGE_F32_REL
-    of the golden's lagged final.  Returns K1's launches by shape of the
-    float64 ring replay and of the float32 one."""
+    checkpoint finite, final ncap 32768, final chi2 within the bench's
+    large-N bound (relative) of the golden's lagged final.  Returns K1's
+    launches by shape of the float64 ring replay and of the float32 one."""
     from aprilsam_tpu_torch import large_inc
+    from aprilsam_tpu_torch.bench import GATE_TOL
 
     head, ring, _ = read_super_golden(LARGE_GOLDEN)
     gold, lagged = head["ring"], head["lagged"]
@@ -1293,7 +1234,7 @@ def run_large(K, card: str) -> dict:
     res["rel_to_reference"] = abs(res["final_chi2"] - want) / abs(want)
     if res["node_capacity"] != 32768:
         bad.append(f"final ncap {res['node_capacity']}")
-    if not res["rel_to_reference"] < LARGE_F32_REL:
+    if not res["rel_to_reference"] < GATE_TOL["large"]:
         bad.append(f"final chi2 {res['final_chi2']!r} is "
                    f"{res['rel_to_reference']:.4%} from {want!r}")
     held(res, bad)
@@ -1492,6 +1433,59 @@ def run_multicard(card: str) -> dict:
     for r in results:
         launches.update(r["tri_inv_launches"])
     return dict(launches)
+
+
+def run_bench(card: str) -> dict:
+    """Phase 18: the benchmark's cells (aprilsam_tpu_torch/bench.py), each
+    as a user runs it, `python -m aprilsam_tpu_torch.bench --config CELL`
+    in a process and session of its own, with one timed run: every
+    single-card cell, and on a machine with four cards or more the
+    4-card cell.  Each must exit 0 with its gate passed on the card.
+    Returns K1's launches by shape of each cell's timed run."""
+    from aprilsam_tpu_torch.bench import CELLS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {}
+    for name, cell in CELLS.items():
+        if cell.chips > torch.cuda.device_count():
+            print(f"bench {name}: needs {cell.chips} cards; this machine "
+                  f"has {torch.cuda.device_count()}", flush=True)
+            continue
+        t = time.perf_counter()
+        cmd = [sys.executable, "-m", "aprilsam_tpu_torch.bench", "--config",
+               name, "--runs", "1"]
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                env=dict(os.environ, PYTHONPATH=REPO),
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        lines = out.strip().splitlines()
+        line = json.loads(lines[-1]) if lines and lines[-1].startswith(
+            "{") else {}
+        run = (line.get("runs") or [{}])[0]
+        print(json.dumps({
+            "phase": f"bench-{name}", "card": card,
+            "command": " ".join(cmd[1:]), "rc": proc.returncode,
+            "seconds": time.perf_counter() - t,
+            "metrics": {k: v["value"] for k, v in
+                        line.get("metrics", {}).items()},
+            "gate": line.get("gate"), "layers_k1": line.get(
+                "layers", {}).get("k1")}, default=str), flush=True)
+        if proc.returncode != 0 or line.get("platform") != "gpu" or \
+                not line["gate"]["ok"]:
+            raise AssertionError(f"bench {name}: rc {proc.returncode}, "
+                                 f"{lines[-1:]}, {err[-2000:]}")
+        paths[f"bench-{name}"] = {
+            (r["shape"][0], r["shape"][1], r["dtype"]): r["launches"]
+            for r in run.get("tri_inv_launches_by_shape", [])}
+        if cell.gate != "schur" and not paths[f"bench-{name}"]:
+            raise AssertionError(f"bench {name}: K1 was not launched")
+    return paths
 
 
 def epochs_of(counters: dict) -> dict:
@@ -1859,7 +1853,10 @@ def main() -> int:
     # 17. the distributed solves across every card of the machine
     paths["multicard"] = phase("multicard", run_multicard, smi)
 
-    # 18. the kernels line, the card, the result; K1's share of each
+    # 18. the benchmark's cells, each in a process of its own
+    paths.update(phase("bench", run_bench, smi))
+
+    # 19. the kernels line, the card, the result; K1's share of each
     # replay is its launches at each shape times that shape's time from
     # phase 3
     print(json.dumps({"phase_seconds": "all",

@@ -47,35 +47,12 @@ POSES = 3500
 WINDOW = (2000, 2300)
 
 
-def _device_self_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(evt, name, None)
-        if v is not None:
-            return float(v)
-    return 0.0
-
-
-def device_rows(prof) -> list:
-    """(name, device self µs, count) of the device-side rows (kernels,
-    copies, sets), largest first, so no time counts twice."""
-    ka = [e for e in prof.key_averages()
-          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    if not ka:
-        raise RuntimeError("the profiler recorded no device-side rows")
-    return sorted(((e.key, _device_self_us(e), e.count) for e in ka
-                   if _device_self_us(e) > 0), key=lambda r: -r[1])
-
-
-def top(dev) -> list:
-    return [{"op": k[:80], "ms": us / 1e3, "count": c}
-            for k, us, c in dev[:10]]
-
-
 def profile_superstep() -> None:
     from aprilsam_tpu_torch.datasets import manhattan_world
     from aprilsam_tpu_torch.replay import Replay
     from aprilsam_tpu_torch.solver import SolverConfig
     from aprilsam_tpu_torch.solver import incremental
+    from aprilsam_tpu_torch.utils.trace import device_rows, host_clock, top
 
     cfg = SolverConfig(wallclock_gate=False, dtype=np.float64,
                        superstep_size=96, policy_lag=3, policy_poll=2,
@@ -92,34 +69,17 @@ def profile_superstep() -> None:
         torch.cuda.synchronize()
         return rep.solver, time.perf_counter() - t
 
-    # 1. the host's split, profiler off: wrap the stages of a superstep
-    # dispatch (module functions are looked up at call time)
-    host_ms = defaultdict(float)
-
-    def timed(name, fn):
-        def run(*args, **kw):
-            t = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                host_ms[name] += (time.perf_counter() - t) * 1e3
-        return run
-
+    # 1. the host's split, profiler off: the stages of a superstep
+    # dispatch on the host clock
     stages = [(incremental, "plan_step"), (incremental, "step_inputs"),
               (incremental, "_frontal_core"), (incremental, "_global_sweep"),
               (incremental.IncrementalSolver, "_dispatch_superstep"),
               (incremental.IncrementalSolver, "_run_batch"),
               (torch.linalg, "qr")]
-    saved = [(obj, name, getattr(obj, name)) for obj, name in stages]
-    for obj, name, fn in saved:
-        setattr(obj, name, timed(name.lstrip("_"), fn))
-    try:
+    with host_clock(stages) as spent:
         solver, secs = replay(graphs=False)
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
     timed_line = {"seconds": secs, "poses_per_s": POSES / secs,
-                  "host_ms": dict(host_ms)}
+                  "host_ms": {k: ms for k, (ms, _n) in spent.items()}}
 
     # 2. the device, profiler on
     with torch.profiler.profile(activities=[
@@ -147,6 +107,7 @@ def main() -> int:
     from aprilsam_tpu_torch.datasets import manhattan_world
     from aprilsam_tpu_torch.replay import Replay
     from aprilsam_tpu_torch.solver import SolverConfig
+    from aprilsam_tpu_torch.utils.trace import device_rows, top
 
     lo, hi = WINDOW
     cfg = SolverConfig(wallclock_gate=False, show_timing=True,

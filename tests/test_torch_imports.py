@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from aprilsam_tpu_torch import cli, large_inc, scaling, schur_stages
+from aprilsam_tpu_torch import bench, cli, large_inc, scaling, schur_stages
 from aprilsam_tpu_torch.datasets import manhattan_world
 from aprilsam_tpu_torch.io import save_graph_file
 from aprilsam_tpu_torch.replay import Replay
@@ -55,7 +55,7 @@ def test_port_has_the_slice_modules():
               "parallel.schur", "parallel.dryrun", "examples.tutorial",
               "examples.graph_save_load", "examples.distributed_solve",
               "large_inc", "scaling", "scaling_model", "schur_stages",
-              "utils.card", "multicard"):
+              "utils.card", "multicard", "bench", "utils.trace"):
         assert f"aprilsam_tpu_torch.{m}" in mods, m
     assert os.path.exists(os.path.join(PKG, "csrc", "tri_inv.cu"))
 
@@ -105,7 +105,7 @@ def _tiny_graph():
 
 @pytest.mark.parametrize("entry", ["IncrementalSolver", "BatchSolver",
                                    "Replay", "cli", "large_inc", "scaling",
-                                   "schur_stages"])
+                                   "schur_stages", "bench"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """With no device argument the entry points take the card; where there
     is none they raise instead of running on the CPU."""
@@ -123,6 +123,9 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             return scaling.main(["--poses", "200", "--blocks", "4"])
         if entry == "schur_stages":
             return schur_stages.main(["--poses", "200", "--blocks", "4"])
+        if entry == "bench":
+            return bench.main(["--config", "manhattan3500-super96-f64",
+                               "--runs", "1", "--no_trace"])
         path = tmp_path / "one.g2o"
         path.write_text("VERTEX2 0 0 0 0\nVERTEX2 1 1 0 0\n"
                         "EDGE2 0 1 1 0 0 100 0 100 1000 0 0\n")

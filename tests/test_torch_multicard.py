@@ -49,7 +49,8 @@ STAGES = ["--device", "cpu", "--ranks", "2", "--poses", "2000",
 def world():
     """multicard_rank's results on each rank of a spawned gloo world, and
     check's summary and failures against the golden."""
-    results = run_ranks(multicard_rank, WORLD, SPEC, timeout=900)
+    results = run_ranks(multicard_rank, WORLD, SPEC, device="cpu",
+                        timeout=900)
     summary, bad = check(results, read_golden())
     return results, summary, bad
 
@@ -200,7 +201,8 @@ def test_a_rank_that_raises_fails_the_world():
     rank that waits in its collective is ended."""
     t = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 failed") as err:
-        run_ranks(_raise_on_rank_1, 2, timeout=120, collective_timeout=60)
+        run_ranks(_raise_on_rank_1, 2, device="cpu", timeout=120,
+                  collective_timeout=60)
     assert "rank 1 gives up" in str(err.value)
     assert time.monotonic() - t < 40
 
@@ -210,5 +212,6 @@ def test_collective_timeout_fails_a_stuck_world():
     on its rank, and the world fails well before the stalled rank wakes."""
     t = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 0 failed"):
-        run_ranks(_stall_rank_1, 2, timeout=120, collective_timeout=3)
+        run_ranks(_stall_rank_1, 2, device="cpu", timeout=120,
+                  collective_timeout=3)
     assert time.monotonic() - t < 60

@@ -107,7 +107,8 @@ def port():
     """{world size: [each rank's _rank_checks]}."""
     with one_rank_group("cpu") as mesh:
         one = _rank_checks(mesh)
-    return {1: [one], 4: run_ranks(_rank_checks, 4, timeout=900)}
+    return {1: [one], 4: run_ranks(_rank_checks, 4, device="cpu",
+                                   timeout=900)}
 
 
 def _jax_mesh(n):

@@ -122,7 +122,8 @@ def port_bench():
     """Each rank's bench_rank result on a spawned world of WORLD gloo
     ranks."""
     args = scaling.build_parser().parse_args(BENCH)
-    return run_ranks(scaling.bench_rank, WORLD, args, timeout=900)
+    return run_ranks(scaling.bench_rank, WORLD, args, device="cpu",
+                     timeout=900)
 
 
 @pytest.fixture(scope="module")

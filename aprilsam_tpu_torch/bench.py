@@ -28,7 +28,8 @@ Every graph is generated from `--seed` (default 0, the goldens' seed), as
 the benchmark's data contract asks: data is made in the run from a seed.
 Another seed, or another `--poses`, changes the graph, and the replay
 cells then need `--golden`, a file in the format of the cell's own; the
-4-card cell's gate needs none.
+4-card cell holds its default graph also to the JAX package's solve
+(golden/schur100k_jax.npz) and another graph to itself alone.
 
 As bench.py's worker: one full warm replay (60 steps on the CPU), then
 `--runs` timed replays (5 on the card, 1 on the CPU), each a fresh
@@ -99,8 +100,10 @@ CHI2_BAND = (60.0, 80.0)
 GATE_TOL = {"per-step": 1e-6, "lagged": 1e-9, "large": 0.005}
 # the 4-card cell: keyframe blocks of the partition (chip_smoke.py's phase
 # 12); its gate is multicard.check's, float64: every rank's states
-# bit-identical, states and chi2 at D = 4 against D = 1's (SOLVE_TOL) and
-# chi2 against the host BatchSolver's (BATCH_CHI2_REL)
+# bit-identical, states and chi2 at D = 4 against D = 1's (SOLVE_TOL),
+# chi2 against the host BatchSolver's (BATCH_CHI2_REL) and, on the
+# golden's graph, chi2 and sampled states against the JAX package's
+# (JAX_TOL, golden/schur100k_jax.npz)
 SCHUR_BLOCKS = 64
 
 
@@ -550,7 +553,8 @@ def run_schur(args, runs: int) -> dict:
                           bench_dtypes=(), stages=False)
     results = run_ranks(multicard.multicard_rank, n, spec,
                         device=args.device, timeout=1800.0)
-    summary, fails = multicard.check(results, {})
+    summary, fails = multicard.check(results,
+                                     multicard.read_schur_golden())
     solve = ("manhattan", "float64", "distributed")
     at = [r["solves"][(*solve, n)] for r in results]
     one = results[0]["solves"][(*solve, 1)]
@@ -564,7 +568,8 @@ def run_schur(args, runs: int) -> dict:
                       "chi2": {f"D={n}": at[0]["chi2"], "D=1": one["chi2"],
                                "rel": row["chi2_rel_vs_one_rank"],
                                "batch": results[0]["batch"]["manhattan"],
-                               "rel_vs_batch": row["chi2_rel_vs_batch"]},
+                               "rel_vs_batch": row["chi2_rel_vs_batch"],
+                               "vs_jax": row.get("vs_jax")},
                       "states_vs_one_rank": row["vs_one_rank"],
                       "ranks_identical": row["ranks_identical"],
                       "gn_iter_ms": {f"D={n}": at[0]["ms_per_iter"],
@@ -669,15 +674,18 @@ def main(argv=None) -> int:
     print(f"{name}: {card}, torch {torch.__version__}, {runs} runs",
           flush=True)
     if name == SCHUR:
-        from .multicard import BATCH_CHI2_REL, SOLVE_TOL
+        from .multicard import BATCH_CHI2_REL, JAX_TOL, SOLVE_TOL
 
         ref = {"rule": f"every rank's states at D = {CELLS[name].chips} "
                        "bit-identical; states and chi2 against D = 1's "
                        f"within {SOLVE_TOL['float64']}; chi2 within "
                        f"relative {BATCH_CHI2_REL} of the host "
-                       "BatchSolver's",
+                       "BatchSolver's; on the golden's graph, chi2 and "
+                       "the states of every 100th pose against the JAX "
+                       f"package's within {JAX_TOL['float64']}",
+               "golden": "golden/schur100k_jax.npz",
                "tol": {**SOLVE_TOL["float64"], "chi2_rel_vs_batch":
-                       BATCH_CHI2_REL}}
+                       BATCH_CHI2_REL, "vs_jax": JAX_TOL["float64"]}}
         res = run_schur(args, runs)
     else:
         if args.datapath and CELLS[name].poses != 3500:

@@ -106,3 +106,33 @@ def manhattan_world(
         grid.setdefault(cell(truth[i, :2]), []).append(i)
 
     return g
+
+
+def row_growth_world(n_poses: int = 40, closures: int = 80, seed: int = 0,
+                     graph=FactorGraph):
+    """A chain of `n_poses` poses along x with a prior at node 0, an
+    odometry factor between consecutive poses and `closures` random
+    closures between any two poses: dense enough that the R rows of its
+    factor outgrow a small ``row_block_capacity``.  Measurements and
+    initial values carry noise drawn from `seed`.  `graph` is the class
+    the graph is built in (any with the port's FactorGraph methods), so
+    that another package's solver can be given the same input."""
+    rng = np.random.default_rng(seed)
+    W = np.diag([100.0, 100.0, 400.0])
+    sigma = np.array([0.05, 0.05, 0.02])
+    truth = np.zeros((n_poses, 3))
+    truth[:, 0] = np.arange(n_poses)
+    init = truth + 0.1 * rng.standard_normal((n_poses, 3))
+    init[:, 2] = np_mod2pi(init[:, 2])
+    g = graph()
+    for i in range(n_poses):
+        g.add_node(init[i], init=init[i], truth=truth[i])
+    g.add_factor_xytpos(0, np.zeros(3), np.diag([1e4, 1e4, 1e3]))
+    for i in range(n_poses - 1):
+        g.add_factor_xyt(i, i + 1, np.array([1.0, 0.0, 0.0])
+                         + sigma * rng.standard_normal(3), W)
+    for _ in range(closures):
+        a, b = sorted(int(v) for v in rng.choice(n_poses, 2, replace=False))
+        g.add_factor_xyt(a, b, np.array([float(b - a), 0.0, 0.0])
+                         + sigma * rng.standard_normal(3), W)
+    return g

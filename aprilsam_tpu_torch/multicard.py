@@ -19,7 +19,11 @@ shared by every part below; the others wait at a barrier):
     ones, each clock started after a barrier and the slowest rank's,
     after a warm solve that makes the group's first collectives), each
     rank's peak device memory, and the states held to the one-rank
-    solve's and, in float64, chi2 to the host BatchSolver's; with
+    solve's and, in float64, chi2 to the host BatchSolver's; where the
+    graph and blocks are those of the JAX package's 100 000-pose golden
+    (``golden/schur100k_jax.npz``, made by
+    ``tests/make_schur100k_golden.py``), chi2 and the float64 states of
+    every SAMPLE_EVERY-th pose held to the JAX package's (JAX_TOL); with
     ``Spec.profile``, one more 1-iteration solve under torch.profiler
     (each rank's stage table and collectives);
   * ``scaling.py:bench_rank`` (bench_scaling.py at its defaults) in each
@@ -43,6 +47,7 @@ import numpy as np
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "multicard_jax.npz")
+SCHUR_GOLDEN = os.path.join(os.path.dirname(GOLDEN), "schur100k_jax.npz")
 # The dry run's float32 states against the JAX package's, per separator
 # mode: twice the JAX package's own float32 error at 2048 poses on four
 # devices (tests/test_torch_parallel.py::test_schur_float32_matches_jax:
@@ -63,6 +68,21 @@ BATCH_CHI2_REL = 1e-5
 # than the CPU's LAPACK; float32's damping leaves the port's CPU float32
 # 0.56 % from JAX's)
 BENCH_TOL = {"float64": 1e-7, "float32": 5e-2}
+# The 100 000-pose solves (two Gauss-Newton iterations, 64 blocks)
+# against the JAX package's on the CPU (SCHUR_GOLDEN), chi2 relative and,
+# in float64, the states of every SAMPLE_EVERY-th pose norm-wise (as
+# state_diff's "norm" reads them).  Sound readings, the port's CPU solves
+# (tests/test_torch_multicard.py, slow) and the card's (chip_smoke.py
+# phases 12 and 16): float64 chi2 7.3e-9 on the CPU and 1.7e-10 on the
+# card, held to 1e-7 (BENCH_TOL's: LAPACK and cuSOLVER each round
+# otherwise than XLA); states 3.9e-9 on the CPU (the scaling graph) and
+# 1.0e-10 on the card, held to 1e-8; float32 chi2 2.9e-3, set by its
+# eq_jitter damping, held to BENCH_TOL's 5e-2.  Controls that fail: a
+# gn_iters=1 solve (chi2 4.6, states 0.086 from the golden) and the
+# float32 states (0.11 and 0.58).
+JAX_TOL = {"float64": {"chi2_rel": 1e-7, "states": 1e-8},
+           "float32": {"chi2_rel": 5e-2}}
+SAMPLE_EVERY = 100
 MODES = {"replicated": False, "distributed": True}
 DTYPES = ("float64", "float32")
 
@@ -128,7 +148,8 @@ def multicard_rank(mesh, spec: Spec) -> dict:
 
     r = mesh.rank
     out = {"rank": r, "world": mesh.size, "device": str(mesh.device),
-           "dryrun": {}, "solves": {}, "batch": {}, "seconds": {}}
+           "dryrun": {}, "solves": {}, "batch": {}, "seconds": {},
+           "graphs": dict(spec.graphs), "blocks": spec.blocks}
     dev = ["--device", mesh.device.type]
     bench_args = [scaling.build_parser().parse_args(dev + ["--dtype", dt])
                   for dt in spec.bench_dtypes]
@@ -182,6 +203,7 @@ def multicard_rank(mesh, spec: Spec) -> dict:
                                 schur_stages.profile_iteration(*args)
                         if r == 0:
                             res["chi2"] = graph_chi2(g, st)
+                            res["sampled"] = st[::SAMPLE_EVERY]
                             if k == 1:
                                 one[dt, mode] = st
                             res["vs_one_rank"] = state_diff(st,
@@ -233,10 +255,60 @@ def read_golden(path: str = GOLDEN) -> dict:
     return out
 
 
+def read_schur_golden(path: str = SCHUR_GOLDEN) -> dict:
+    """The JAX package's 100 000-pose solves: {"schur": {graph name:
+    {"graph": manhattan_world's arguments, "blocks", "gn_iters", "every",
+    "chi2": {dtype: chi2}, "states": the float64 states of every
+    "every"-th pose}}, "schur_meta": the file's meta}."""
+    with np.load(path) as z:
+        meta = json.loads(str(z["meta_json"]))
+        return {"schur": {
+            name: {"graph": kw, "blocks": meta["blocks"],
+                   "gn_iters": meta["gn_iters"],
+                   "every": meta["sample_every"],
+                   "chi2": {dt: float(z[f"{name}_chi2_{dt}"])
+                            for dt in DTYPES},
+                   "states": z[f"{name}_states_float64"]}
+            for name, kw in meta["graphs"].items()}, "schur_meta": meta}
+
+
+def jax_entry(golden: dict, graph: dict, blocks: int, gn_iters: int = 2):
+    """The golden's solve of manhattan_world(**graph) in `blocks` blocks
+    at `gn_iters` (read_schur_golden's entry), or None."""
+    for e in golden.get("schur", {}).values():
+        if (e["graph"], e["blocks"], e["gn_iters"]) == (graph, blocks,
+                                                        gn_iters):
+            return e
+    return None
+
+
+def hold_to_jax(entry: dict, dt: str, chi2: float, sampled) -> tuple:
+    """A solve's chi2 and, in float64, its states of every
+    entry["every"]-th pose (`sampled`) against the JAX package's, to
+    JAX_TOL.  Returns (the figures beside their bounds, what failed)."""
+    tol = JAX_TOL[dt]
+    jax = entry["chi2"][dt]
+    row = {"chi2": chi2, "chi2_jax": jax,
+           "chi2_rel": abs(chi2 - jax) / jax, "tol": tol}
+    bad = []
+    if not row["chi2_rel"] <= tol["chi2_rel"]:
+        bad.append(f"{dt} chi2 {chi2!r} against JAX's {jax!r}")
+    if "states" in tol:
+        if sampled.shape != entry["states"].shape:
+            bad.append(f"{dt}: no states of every {entry['every']}th pose")
+        else:
+            row["states"] = state_diff(sampled, entry["states"])
+            if not row["states"]["norm"] <= tol["states"]:
+                bad.append(f"{dt} states {row['states']} against JAX's")
+    return row, bad
+
+
 def check(results: list, golden: dict) -> tuple:
     """Hold a world's results (every rank's multicard_rank, in rank order)
-    to the golden and to each other.  Returns (summary, failures): the
-    summary holds every figure compared, each beside its bound."""
+    to the golden (read_golden's and, for the 100 000-pose solves,
+    read_schur_golden's: either may be left out) and to each other.
+    Returns (summary, failures): the summary holds every figure compared,
+    each beside its bound."""
     from .schur_stages import combine
 
     head = results[0]
@@ -293,6 +365,11 @@ def check(results: list, golden: dict) -> tuple:
             if not (res["vs_one_rank"]["norm"] <= tol["states"]
                     and row["chi2_rel_vs_one_rank"] <= tol["chi2_rel"]):
                 bad.append(f"{key}: {row} against one rank, bound {tol}")
+        entry = jax_entry(golden, head["graphs"][name], head["blocks"])
+        if entry is not None:
+            row["vs_jax"], fails = hold_to_jax(entry, dt, res["chi2"],
+                                               res["sampled"])
+            bad += [f"{key}: {f}" for f in fails]
         if dt == "float64" and name in head["batch"]:
             row["chi2_rel_vs_batch"] = (abs(res["chi2"] - head["batch"][name])
                                         / head["batch"][name])

@@ -195,3 +195,46 @@ class Replay:
             for r in self.results:
                 if math.isnan(r.chi2) and r.step < len(hist):
                     r.chi2 = float(hist[r.step])
+
+
+def replay_by_max_endpoint(loaded, solver, graph=FactorGraph, seed=SeedSpec,
+                           first: int = 1, on_step=None) -> list:
+    """Replay every factor of `loaded`, xytpos priors included, pose by
+    pose into `solver` (tests/test_mixed_factors.py's loop): the factors
+    grouped by their largest endpoint in file order, each odometry factor
+    (|a - b| = 1) also a seed of its newer node, priors added as they
+    arrive.  The first `first` poses are solved at once, then each further
+    pose is an update; the solver is flushed at the end.  `graph` and
+    `seed` are the live graph's and the seed's classes, so that another
+    package's solver can replay the same input.  Returns one record per
+    solve or update: the step (the newest pose), the path, the returned
+    chi2 (NaN where the solver defers it) and the row block capacity after
+    it, each also passed to `on_step` as it is made."""
+    n = loaded.nnodes
+    by_max = [[] for _ in range(n)]
+    for f in range(loaded.nfactors):
+        by_max[int(max(loaded.fnodes[f]))].append(f)
+    live, out = graph(), []
+    for k in range(n):
+        live.add_node(loaded.init[k], init=loaded.init[k])
+        seeds = []
+        for f in by_max[k]:
+            a, b = (int(v) for v in loaded.fnodes[f])
+            if b < 0:
+                live.add_factor_xytpos(a, loaded.fz[f], loaded.fW[f])
+                continue
+            if abs(a - b) == 1:
+                seeds.append(seed(a, b, loaded.fz[f], False) if a < b
+                             else seed(b, a, loaded.fz[f], True))
+            live.add_factor_xyt(a, b, loaded.fz[f], loaded.fW[f])
+        if k + 1 < first:
+            continue
+        info = (solver.solve(live) if k + 1 == first
+                else solver.update(live, seeds=seeds))
+        out.append({"step": k, "path": solver.last_path,
+                    "chi2": math.nan if info is None else float(info.chi2),
+                    "rows": int(solver.cfg.row_block_capacity)})
+        if on_step is not None:
+            on_step(out[-1])
+    solver.flush(live)
+    return out

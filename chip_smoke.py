@@ -76,8 +76,11 @@ must be equal: one replay per dispatch, none eager.
      manhattan_world(100000, seed=0, closure_prob=0.02) in 64 blocks, two
      Gauss-Newton iterations, with the replicated and the block-cyclic
      separator, float64 (held to each other and to the host BatchSolver,
-     SCHUR_TOL) and float32 (to each other); the partition's sizes, ms per
-     iteration and peak device memory of each run;
+     SCHUR_TOL) and float32 (to each other), each held to the JAX
+     package's solve of the graph (golden/schur100k_jax.npz: chi2, and in
+     float64 the states of every 100th pose; multicard.JAX_TOL); the
+     partition's sizes, ms per iteration and peak device memory of each
+     run;
  13. the ahead-of-time surface: precompile for the per-step, S = 96
      bench, windowed and bundled configs, and the dense epoch's, the
      panel epoch's and the expansion's ladders, at 3500 poses:
@@ -123,7 +126,9 @@ must be equal: one replay per dispatch, none eager.
      blocks, SCALING.md's graph), float32 and float64: ms per iteration,
      device time by stage, idle share, peak memory, bound share and the
      projection, the states finite and the float64 chi2 held to the
-     host BatchSolver's (SCHUR_TOL["chi2_rel_vs_batch"]); and the
+     host BatchSolver's (SCHUR_TOL["chi2_rel_vs_batch"]), both dtypes'
+     chi2 and the float64 sampled states to the JAX package's solve
+     (golden/schur100k_jax.npz, multicard.JAX_TOL); and the
      communication model (scaling_model.py) at 100 000 poses on the host,
      its six rows;
  17. multicard, on every card of the machine, one NCCL rank per card in
@@ -135,8 +140,10 @@ must be equal: one replay per dispatch, none eager.
      1e-3); schur_solve on phase 12's and phase 16's 100 000-pose graphs
      in 64 blocks, float64 and float32, both separator modes, at every
      size against one rank (float64 norm-wise 1e-8 and chi2 1e-9; float32
-     5e-2 and 1e-2) and in float64 against the host BatchSolver (chi2
-     1e-5), with ms per iteration, E(k) and each rank's peak memory; the
+     5e-2 and 1e-2), in float64 against the host BatchSolver (chi2
+     1e-5) and against the JAX package's solve (golden/schur100k_jax.npz,
+     multicard.JAX_TOL), with ms per iteration, E(k) and each rank's peak
+     memory; the
      scaling bench at its defaults in float64 and float32, chi2 at every
      size within SCALING_TOL of the golden; the stage profile at every
      size with every rank profiled, the waiting in the collectives, the
@@ -146,13 +153,31 @@ must be equal: one replay per dispatch, none eager.
      every card, its final chi2 within relative 1e-9 of the same example
      on one rank.  On a machine with one card it prints that it needs two
      and runs nothing;
- 18. the benchmark (aprilsam_tpu_torch/bench.py) as a user runs it, one
+ 18. row-capacity growth on graphs (aprilsam_tpu_torch/replay_checks.py):
+     row_growth_world (40 poses, 80 closures) solved at 20 poses, then
+     updated pose by pose at row_block_capacity=8 (8 -> 12 -> 18), per
+     step and in supersteps of 4, the graphs prepared again after each
+     growth; each held to the JAX package's golden
+     (golden/rowgrowth40_jax.txt: row capacity and path per step, chi2
+     within relative 1e-6), one cache generation per growth, one graph
+     replay per dispatch but for the captures of the growing step, and K1
+     launched once per sweep;
+ 19. the mixed-factor replay (BASELINE.json config 3) on graphs after
+     precompile: manhattan_world(3500, seed=0, geopin_every=25), its 140
+     xytpos priors added as they arrive, per step at the default
+     SolverConfig, held to golden/manhattan3500_seed0_geopin25.txt as
+     phase 5 is (chi2 per step, paths, census, K1 once per full-path
+     dispatch, one graph replay per dispatch, with the largest frontal
+     bucket precompiled at every panel count: the priors reach it at 4 and
+     8 active panels, which default_signatures leaves to the run);
+     poses/s;
+ 20. the benchmark (aprilsam_tpu_torch/bench.py) as a user runs it, one
      process per cell with one timed run and its traced run: the per-step,
      S = 96 and large-N cells, and on a machine with four cards the 4-card
      cell; each exits 0 with its gate passed (the per-step census, the
      goldens' chi2), and K1's launches of each timed run join the kernels
      line (paths bench-<cell>);
- 19. one JSON line listing every ported kernel, with K1's launches on each
+ 21. one JSON line listing every ported kernel, with K1's launches on each
      path and by shape, and their launch-weighted kernel and library
      times; the card's line; and the result line
      {"ok": true, "device": {...}}.
@@ -222,7 +247,12 @@ CHECKPOINT_AT = 1750
 # the norm-wise difference is near 1e-11 in float64 (PERF.md section 6).
 # The decomposition matches the monolithic host batch solve in float64
 # (tests/test_distributed.py's 1e-5).  Angles are compared mod 2pi.
+# Each solve's chi2 (both dtypes) and float64 states of every 100th pose
+# are also held to the JAX package's solve of the same graph on the CPU
+# (golden/schur100k_jax.npz; multicard.JAX_TOL, where the bounds' reasons
+# are).
 SCHUR_POSES, SCHUR_BLOCKS, SCHUR_GN = 100000, 64, 2
+SCHUR_GRAPH = dict(n_poses=SCHUR_POSES, seed=0, closure_prob=0.02)
 SCHUR_TOL = {"float64_modes": 1e-8, "float32_modes": 5e-2,
              "chi2_rel_vs_batch": 1e-5, "xy_vs_batch": 1e-5}
 
@@ -249,8 +279,11 @@ SCHUR_TOL = {"float64_modes": 1e-8, "float32_modes": 5e-2,
 # from the JAX figure: held within 5 %.
 SCALING_CHI2 = {"float64": 92747.40863341012, "float32": 736753.71}
 SCALING_TOL = {"float64": 1e-7, "float32": 5e-2}
-# phase 16's stage profile: schur_stages.py's defaults
+# phase 16's stage profile: schur_stages.py's defaults, its chi2 held to
+# the JAX package's solve as phase 12's are
 STAGES_POSES, STAGES_BLOCKS, STAGES_GN = 100000, 64, 2
+STAGES_GRAPH = dict(n_poses=STAGES_POSES, seed=0, closure_prob=0.02,
+                    block=25, max_closures_per_pose=1)
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # (B, N, dtype) of T [B, N, N]: the first slice's shapes, then the B the
 # main path launches at N = 3 * panel_nodes = 384 (float64)
@@ -600,9 +633,12 @@ def run_distributed(card: str) -> None:
     keyframe-block Schur solve of manhattan_world(100000, seed=0,
     closure_prob=0.02) in float64 with both separator modes, held to each
     other and to the host BatchSolver, and in float32 with both modes, held
-    to each other."""
+    to each other; each held to the JAX package's solve (chi2, and the
+    float64 states of every 100th pose)."""
     from aprilsam_tpu_torch.datasets import manhattan_world
     from aprilsam_tpu_torch.geometry import np_mod2pi
+    from aprilsam_tpu_torch.multicard import (SAMPLE_EVERY, hold_to_jax,
+                                              jax_entry, read_schur_golden)
     from aprilsam_tpu_torch.parallel import one_rank_group
     from aprilsam_tpu_torch.parallel.dryrun import dryrun_multichip
     from aprilsam_tpu_torch.parallel.schur import partition_graph, schur_solve
@@ -616,8 +652,10 @@ def run_distributed(card: str) -> None:
                           "seconds": time.perf_counter() - t}), flush=True)
 
         t = time.perf_counter()
-        g = manhattan_world(SCHUR_POSES, seed=0, closure_prob=0.02)
+        g = manhattan_world(**SCHUR_GRAPH)
         gen_s = time.perf_counter() - t
+        entry = jax_entry(read_schur_golden(), SCHUR_GRAPH, SCHUR_BLOCKS,
+                          SCHUR_GN)
         t = time.perf_counter()
         part = partition_graph(g, SCHUR_BLOCKS)
         part_s = time.perf_counter() - t
@@ -665,6 +703,11 @@ def run_distributed(card: str) -> None:
                     "norm": float(np.max(d) / (1.0 + np.max(np.abs(b))))}
 
         st = {k: v[0] for k, v in runs.items()}
+        vs_jax, jax_bad = {}, []
+        for (d, m), states in st.items():
+            vs_jax[f"{d}-{m}"], fails = hold_to_jax(
+                entry, d, chi2_of(states), states[::SAMPLE_EVERY])
+            jax_bad += [f"{d}-{m}: {f}" for f in fails]
         rep64 = st["float64", "replicated"]
         chi2_dd = chi2_of(rep64)
         modes64 = diff(st["float64", "distributed"], rep64)
@@ -693,11 +736,12 @@ def run_distributed(card: str) -> None:
             "xy_theta_modes": {"float64": modes64, "float32": modes32},
             "xy_theta_float32_vs_float64": diff(st["float32", "replicated"],
                                                 rep64),
-            "tol": SCHUR_TOL}), flush=True)
+            "tol": SCHUR_TOL, "vs_jax": vs_jax}), flush=True)
         bad = [k for k, v in err.items() if not v <= SCHUR_TOL[k]]
-        if bad or not all(np.all(np.isfinite(v[0])) for v in runs.values()):
+        if bad or jax_bad or not all(np.all(np.isfinite(v[0]))
+                                     for v in runs.values()):
             raise AssertionError(f"schur_solve at {SCHUR_POSES} poses: "
-                                 f"{err} against {SCHUR_TOL}")
+                                 f"{err} against {SCHUR_TOL}; {jax_bad}")
 
 
 
@@ -1251,9 +1295,12 @@ def run_scaling(K, card: str) -> dict:
     model's rows at 100 000 poses.  Returns K1's launches by shape over the
     phase (none expected: the distributed solve runs no K1)."""
     from aprilsam_tpu_torch import scaling, schur_stages
+    from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.multicard import (SAMPLE_EVERY, hold_to_jax,
+                                              jax_entry, read_schur_golden)
     from aprilsam_tpu_torch.parallel import one_rank_group
     from aprilsam_tpu_torch.parallel.schur import partition_graph
-    from aprilsam_tpu_torch.scaling_model import model_rows, scaling_graph
+    from aprilsam_tpu_torch.scaling_model import model_rows
     from aprilsam_tpu_torch.solver import BatchSolver, SolverConfig
     from aprilsam_tpu_torch.utils.card import card_peaks
 
@@ -1285,10 +1332,12 @@ def run_scaling(K, card: str) -> dict:
                            f"{SCALING_CHI2[dt]}")
 
         t = time.perf_counter()
-        g = scaling_graph(STAGES_POSES)
+        g = manhattan_world(**STAGES_GRAPH)
         part = partition_graph(g, STAGES_BLOCKS)
         setup_s = time.perf_counter() - t
-        chi2 = {}
+        entry = jax_entry(read_schur_golden(), STAGES_GRAPH, STAGES_BLOCKS,
+                          STAGES_GN)
+        chi2, vs_jax = {}, {}
         for dt in (np.float32, np.float64):
             name = np.dtype(dt).name
             t = time.perf_counter()
@@ -1297,6 +1346,9 @@ def run_scaling(K, card: str) -> dict:
             schur_stages.report(res, out=log)
             states = res.pop("states")
             chi2[name] = res["chi2"]
+            vs_jax[name], fails = hold_to_jax(entry, name, res["chi2"],
+                                              states[::SAMPLE_EVERY])
+            bad += [f"schur_stages {name}: {f}" for f in fails]
             print(json.dumps({
                 "phase": "schur-stages", "card": card, "dtype": name,
                 "graph": f"manhattan_world({STAGES_POSES}, seed=0, "
@@ -1326,7 +1378,7 @@ def run_scaling(K, card: str) -> dict:
                       "chi2_float32": chi2["float32"],
                       "chi2_batch": chi2_mono, "chi2_rel_vs_batch": rel,
                       "tol": SCHUR_TOL["chi2_rel_vs_batch"],
-                      "host_batch_s": mono_s}), flush=True)
+                      "vs_jax": vs_jax, "host_batch_s": mono_s}), flush=True)
     if not rel <= SCHUR_TOL["chi2_rel_vs_batch"]:
         bad.append(f"schur_stages float64 chi2 {chi2['float64']} against "
                    f"the batch solve's {chi2_mono}")
@@ -1350,7 +1402,8 @@ def run_multicard(card: str) -> dict:
     runs nothing.  Returns K1's launches by shape, summed over the
     ranks (none expected: the distributed solve runs no K1)."""
     from aprilsam_tpu_torch.multicard import (SOLVE_TOL, Spec, check,
-                                              multicard_rank, read_golden)
+                                              multicard_rank, read_golden,
+                                              read_schur_golden)
     from aprilsam_tpu_torch.parallel.dryrun import run_ranks
     from aprilsam_tpu_torch.schur_stages import report_ranks
     from aprilsam_tpu_torch.utils.card import link_line
@@ -1368,7 +1421,7 @@ def run_multicard(card: str) -> dict:
     results = run_ranks(multicard_rank, n, spec, timeout=900.0,
                         device="cuda")
     world_s = time.perf_counter() - t
-    summary, bad = check(results, read_golden())
+    summary, bad = check(results, {**read_golden(), **read_schur_golden()})
     stages = summary.pop("stages")
     report_ranks(stages, out=lambda m: print(m, flush=True))
     for key, row in summary["solves"].items():
@@ -1435,8 +1488,122 @@ def run_multicard(card: str) -> dict:
     return dict(launches)
 
 
+def sweeps_of(counters: dict) -> int:
+    """The dispatches that launch K1 once each: full-path steps, swept
+    supersteps, flush()'s sweeps and panel epochs."""
+    c = counters
+    return (c["full"] + c["superstep"] - c["sup_nosweep"] + c["sweep_flush"]
+            + c["epoch_panel"])
+
+
+def run_row_growth(K, card: str) -> dict:
+    """Phase 18: row-capacity growth on graphs, per step and in supersteps
+    of 4 (replay_checks.run_row_growth: graphs prepared before the replay
+    and again after each growth), held to the JAX package's golden
+    (golden/rowgrowth40_jax.txt): row capacity and path per step, each
+    returned chi2, ring entry and the final chi2 within relative 1e-6; one
+    cache generation per growth and one graph replay per dispatch
+    (hold_graphs_over_growth); K1 launched once per full step, swept
+    superstep and flush() sweep.  Returns K1's launches by shape."""
+    from aprilsam_tpu_torch.replay_checks import (
+        ROW_GROWTH_CASES, hold_graphs_over_growth, hold_row_growth,
+        read_row_growth_golden, run_row_growth as replay)
+
+    gold = read_row_growth_golden()
+    launches, bad = Counter(), []
+    for case in ROW_GROWTH_CASES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        K.reset_launches()
+        t = time.perf_counter()
+        run = replay(case, "cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        s = run["solver"]
+        held = hold_row_growth(run["records"], run["ring"],
+                               run["final_chi2"], gold[case])
+        fails = held.pop("bad") + hold_graphs_over_growth(run)
+        if K.launches != sweeps_of(s.counters) or K.launches == 0:
+            fails.append(f"tri_inv launched {K.launches} times for "
+                         f"{sweeps_of(s.counters)} sweeps")
+        print(json.dumps({
+            "phase": "row-growth", "case": case, "card": card,
+            "config": gold[case]["config"], **held,
+            "paths": [r["path"] for r in run["records"]],
+            "counters": s.counters, "segments": run["segments"],
+            "generation": s.graphs.generation,
+            "captures_by_generation": s.graphs.by_generation,
+            "tri_inv_launches": K.launches, "seconds": secs}), flush=True)
+        bad += [f"{case}: {f}" for f in fails]
+        launches.update(K.launches_by_shape)
+        del run, s
+    if bad:
+        raise AssertionError("row-growth: " + "; ".join(bad))
+    return dict(launches)
+
+
+def run_mixed_factors(K, card: str) -> dict:
+    """Phase 19: the mixed-factor replay (BASELINE.json config 3) on
+    graphs after precompile: manhattan_world(3500, seed=0,
+    geopin_every=25), its 140 xytpos priors added as they arrive, per step
+    at the default SolverConfig, held to the JAX package's golden
+    (golden/manhattan3500_seed0_geopin25.txt) as phase 5 is: every chi2 of
+    the ring within relative 1e-6, each path and the census; K1 launched
+    once per full-path dispatch; one graph replay per dispatch, the
+    largest frontal bucket also captured at every panel count
+    (replay_checks.big_bucket_signatures).  Returns K1's launches by
+    shape."""
+    from aprilsam_tpu_torch.bench import hold_per_step
+    from aprilsam_tpu_torch.replay_checks import (MIXED_CONFIG, MIXED_GRAPH,
+                                                  MIXED_GOLDEN,
+                                                  big_bucket_signatures,
+                                                  run_mixed)
+    from aprilsam_tpu_torch.solver import IncrementalSolver, SolverConfig
+
+    gold_paths, gold_chi2 = read_golden(MIXED_GOLDEN)
+    n = MIXED_GRAPH["n_poses"]
+    s = IncrementalSolver(SolverConfig(**MIXED_CONFIG), device="cuda")
+    prepared = prepare_graphs(s, n)
+    # the largest frontal bucket at every panel count, which the priors
+    # reach before default_signatures' late-trajectory counts
+    extra = big_bucket_signatures(s, n)
+    s.precompile(signatures=extra)
+    prepared["big_bucket_signatures"] = [list(sig) for sig in extra]
+    s.graphs.calls.clear()
+    s.graphs.replayed.clear()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run_mixed(s)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    held = hold_per_step(s.chi2_history(), [r["path"] for r in res],
+                         gold_chi2, gold_paths)
+    bad = held.pop("bad")
+    full = s.counters["full"]
+    if K.launches != full or K.launches == 0:
+        bad.append(f"tri_inv launched {K.launches} times for {full} "
+                   "full-path dispatches")
+    try:
+        use = graph_use(s, "mixed-factors", prepared)
+    except AssertionError as e:
+        use = {"dispatches": dict(s.graphs.calls),
+               "replays": dict(s.graphs.replayed)}
+        bad.append(str(e))
+    print(json.dumps({
+        "phase": "mixed-factors", "card": card,
+        "graph": "manhattan_world({n_poses}, seed={seed}, "
+                 "geopin_every={geopin_every})".format(**MIXED_GRAPH),
+        "config": MIXED_CONFIG, "steps": n, "seconds": secs,
+        "poses_per_s": n / secs, **held, "full_dispatches": full,
+        "tri_inv_launches": K.launches, "graphs": use}), flush=True)
+    if bad:
+        raise AssertionError("mixed-factors: " + "; ".join(bad))
+    return dict(K.launches_by_shape)
+
+
 def run_bench(card: str) -> dict:
-    """Phase 18: the benchmark's cells (aprilsam_tpu_torch/bench.py), each
+    """Phase 20: the benchmark's cells (aprilsam_tpu_torch/bench.py), each
     as a user runs it, `python -m aprilsam_tpu_torch.bench --config CELL`
     in a process and session of its own, with one timed run: every
     single-card cell, and on a machine with four cards or more the
@@ -1853,10 +2020,15 @@ def main() -> int:
     # 17. the distributed solves across every card of the machine
     paths["multicard"] = phase("multicard", run_multicard, smi)
 
-    # 18. the benchmark's cells, each in a process of its own
+    # 18-19. row-capacity growth on graphs, the mixed-factor replay
+    paths["row-growth"] = phase("row-growth", run_row_growth, K, smi)
+    paths["mixed-factors"] = phase("mixed-factors", run_mixed_factors, K,
+                                   smi)
+
+    # 20. the benchmark's cells, each in a process of its own
     paths.update(phase("bench", run_bench, smi))
 
-    # 19. the kernels line, the card, the result; K1's share of each
+    # 21. the kernels line, the card, the result; K1's share of each
     # replay is its launches at each shape times that shape's time from
     # phase 3
     print(json.dumps({"phase_seconds": "all",

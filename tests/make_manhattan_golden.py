@@ -72,6 +72,29 @@ records each read.
     JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --large \
         --out aprilsam_tpu_torch/golden/manhattan20000_large.txt
 
+With ``--geopin K`` it writes the mixed-factor golden (BASELINE.json config
+3): ``manhattan_world(n, seed, geopin_every=K)``, its xytpos priors added
+as they arrive, replayed pose by pose through the port's
+``replay.replay_by_max_endpoint`` into the JAX package's solver at
+``SolverConfig(wallclock_gate=False, policy_lag=0)``, one line per step
+(``step path chi2``, chi2 the ``chi2_history()`` entry); 3500 poses took
+36 min on an 8-core CPU that also ran make_schur100k_golden.py:
+
+    JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --geopin 25 \
+        --out aprilsam_tpu_torch/golden/manhattan3500_seed0_geopin25.txt
+
+With ``--rowgrowth`` it writes the row-capacity growth golden: the port's
+``datasets.row_growth_world`` built in the JAX package's graph, solved at
+20 poses and updated pose by pose to 40 at ``row_block_capacity=8``, per
+step and in supersteps of 4 (``replay_checks.py``'s ROW_GROWTH_* settings):
+one line per solve or update (``case step rows path chi2``: the row
+capacity after it, the path, the returned chi2, nan where deferred) and a
+``# case json`` header line per case with its config, metric ring, final
+chi2, counters and seconds (about 30 s on the CPU, mostly compiles):
+
+    JAX_PLATFORMS=cpu python tests/make_manhattan_golden.py --rowgrowth \
+        --out aprilsam_tpu_torch/golden/rowgrowth40_jax.txt
+
 ``chip_smoke.py`` holds the port's replays on the card against these files.
 """
 
@@ -352,6 +375,75 @@ def write_per_step(args) -> None:
           f"final chi2 {float(hist[-1])!r}")
 
 
+def write_geopin(args) -> None:
+    from aprilsam_tpu.graph import FactorGraph
+    from aprilsam_tpu.solver import IncrementalSolver
+    from aprilsam_tpu.solver.incremental import SeedSpec
+    from aprilsam_tpu_torch.replay import replay_by_max_endpoint
+    from aprilsam_tpu_torch.replay_checks import MIXED_CONFIG
+
+    g = manhattan_world(args.poses, seed=args.seed, geopin_every=args.geopin)
+    s = IncrementalSolver(SolverConfig(**MIXED_CONFIG))
+    t0 = time.perf_counter()
+    res = replay_by_max_endpoint(g, s, FactorGraph, SeedSpec)
+    secs = time.perf_counter() - t0
+    hist = s.chi2_history()
+    assert len(hist) == len(res), (len(hist), len(res))
+    kw = ", ".join(f"{k}={v!r}" for k, v in MIXED_CONFIG.items())
+    with open(args.out, "w") as f:
+        f.write(f"# manhattan_world({args.poses}, seed={args.seed}, "
+                f"geopin_every={args.geopin}), JAX package on the CPU, "
+                f"float64, SolverConfig({kw}), priors added as they arrive "
+                "(replay_by_max_endpoint); columns: step path chi2_history\n")
+        for r, c in zip(res, hist):
+            f.write(f"{r['step']} {r['path']} {float(c)!r}\n")
+    census = {p: sum(r["path"] == p for r in res)
+              for p in ("fast", "full", "batch")}
+    print(f"{len(res)} steps in {secs:.1f} s, census {census}, "
+          f"final chi2 {float(hist[-1])!r}")
+
+
+def write_rowgrowth(args) -> None:
+    from aprilsam_tpu.graph import FactorGraph
+    from aprilsam_tpu.solver import IncrementalSolver
+    from aprilsam_tpu.solver.incremental import SeedSpec
+    from aprilsam_tpu_torch.datasets import row_growth_world
+    from aprilsam_tpu_torch.replay import replay_by_max_endpoint
+    from aprilsam_tpu_torch.replay_checks import (ROW_GROWTH_CASES,
+                                                  ROW_GROWTH_CONFIG,
+                                                  ROW_GROWTH_FIRST,
+                                                  ROW_GROWTH_GRAPH,
+                                                  row_growth_config)
+
+    head, lines = {}, []
+    for case, kw in ROW_GROWTH_CASES.items():
+        s = IncrementalSolver(row_growth_config(case, SolverConfig))
+        t0 = time.perf_counter()
+        res = replay_by_max_endpoint(
+            row_growth_world(**ROW_GROWTH_GRAPH, graph=FactorGraph), s,
+            FactorGraph, SeedSpec, first=ROW_GROWTH_FIRST)
+        secs = time.perf_counter() - t0
+        head[case] = {"config": {**ROW_GROWTH_CONFIG, **kw},
+                      "ring": [float(c) for c in s.chi2_history()],
+                      "final_chi2": float(s.chi2()),
+                      "counters": {k: int(v) for k, v in s.counters.items()},
+                      "seconds": secs}
+        lines += [f"{case} {r['step']} {r['rows']} {r['path']} "
+                  f"{r['chi2']!r}" for r in res]
+        print(f"{case}: rows {[r['rows'] for r in res]}, final chi2 "
+              f"{head[case]['final_chi2']!r} in {secs:.1f} s")
+    graph = ", ".join(f"{k}={v!r}" for k, v in ROW_GROWTH_GRAPH.items())
+    with open(args.out, "w") as f:
+        f.write(f"# row_growth_world({graph}), JAX package on the CPU, "
+                f"float64, solved at {ROW_GROWTH_FIRST} poses then updated "
+                "pose by pose (replay_by_max_endpoint); columns: case step "
+                "rows path chi2 (the returned chi2, nan where deferred); "
+                "header lines: # case json\n")
+        for case, val in head.items():
+            f.write(f"# {case} {json.dumps(val, sort_keys=True)}\n")
+        f.write("\n".join(lines) + "\n")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=3500)
@@ -373,10 +465,19 @@ def main(argv=None) -> int:
                          "graph and config)")
     ap.add_argument("--start_capacity", type=int, default=4096,
                     help="initial node capacity of the large-N golden")
+    ap.add_argument("--geopin", type=int, default=0,
+                    help="write the mixed-factor golden, a prior every this "
+                         "many poses")
+    ap.add_argument("--rowgrowth", action="store_true",
+                    help="write the row-capacity growth golden")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     count_epochs()
-    if args.large:
+    if args.rowgrowth:
+        write_rowgrowth(args)
+    elif args.geopin > 0:
+        write_geopin(args)
+    elif args.large:
         if args.poses == 3500:
             args.poses = 20000
         write_large(args)

@@ -1,7 +1,8 @@
 """CUDA-graph replay against the eager path on the card: the same replay of
 manhattan_world(500, seed=0) with the solver's graphs on and off, per step,
 in supersteps and in bundles; K1's launch record under graphs; precompile
-on the card.
+on the card; row-capacity growth on graphs against the JAX package's
+golden, and the mixed-factor replay on graphs against the port's CPU run.
 
 Needs an NVIDIA card and nvcc; every test here carries the `gpu` marker and
 skips without a card.  The file imports neither JAX nor the JAX package:
@@ -190,3 +191,56 @@ def test_capacity_growth_on_graphs():
     assert sorted(s.graphs.by_generation) == list(range(len(s.growths) + 1))
     assert s.graphs.replays > 0
     assert end <= 1.5 * one_gen, (end, one_gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["per-step", "deferred"])
+def test_row_growth_on_graphs(case):
+    """Row-capacity growth under CUDA graphs (replay_checks.run_row_growth:
+    graphs prepared before the replay and after each growth) against the
+    JAX package's golden (golden/rowgrowth40_jax.txt): the row capacity
+    and path of every step, each chi2 within relative 1e-6; the cache's
+    generation advanced once at each growth, and one graph replay per
+    dispatch after it but for the growing step's own captures."""
+    from aprilsam_tpu_torch.replay_checks import (hold_graphs_over_growth,
+                                                  hold_row_growth,
+                                                  read_row_growth_golden,
+                                                  run_row_growth)
+
+    _need_card()
+    run = run_row_growth(case, "cuda")
+    held = hold_row_growth(run["records"], run["ring"], run["final_chi2"],
+                           read_row_growth_golden()[case])
+    assert held["bad"] == []
+    assert held["rows"][0] == 8 and held["rows"][-1] == 18
+    s = run["solver"]
+    assert s.graphs.generation == len(held["growth_steps"]) == 2
+    assert hold_graphs_over_growth(run) == []
+
+
+@pytest.mark.gpu
+def test_mixed_factors_on_graphs():
+    """The mixed-factor replay (replay_checks.run_mixed: xytpos priors
+    arriving pose by pose, every 25th pose) at 300 poses on graphs after
+    precompile, against the same replay of the port on the CPU: each ring
+    entry within relative 1e-6 (the card's libraries round otherwise than
+    the CPU's), each path equal; one graph replay per dispatch."""
+    from aprilsam_tpu_torch.bench import hold_per_step, prepare
+    from aprilsam_tpu_torch.replay_checks import MIXED_CONFIG, run_mixed
+    from aprilsam_tpu_torch.solver import IncrementalSolver
+
+    _need_card()
+    n = 300
+    cpu = IncrementalSolver(SolverConfig(**MIXED_CONFIG), device="cpu")
+    want = run_mixed(cpu, n)
+    s = IncrementalSolver(SolverConfig(**MIXED_CONFIG), device="cuda")
+    prepare(s, n)
+    s.graphs.calls.clear()
+    s.graphs.replayed.clear()
+    got = run_mixed(s, n)
+    torch.cuda.synchronize()
+    held = hold_per_step(s.chi2_history(), [r["path"] for r in got],
+                         cpu.chi2_history(), [r["path"] for r in want])
+    assert held["bad"] == []
+    assert held["census"]["full"] > 0 and held["census"]["batch"] > 0
+    assert s.graphs.calls and s.graphs.calls == s.graphs.replayed

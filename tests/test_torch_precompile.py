@@ -298,3 +298,21 @@ def test_epoch_ladders_leave_the_state_bit_identical(ladder):
     for field, a in runs[0][0].items():
         assert np.array_equal(a, runs[1][0][field], equal_nan=True), field
     assert np.array_equal(runs[0][1], runs[1][1], equal_nan=True)
+
+
+def test_big_bucket_signatures_complete_the_ladder():
+    """replay_checks.big_bucket_signatures (what the card's mixed-factor
+    phase precompiles beyond default_signatures): with them every frontal
+    bucket has a full-path signature at every panel count of the
+    trajectory, and none is one default_signatures already gives."""
+    from aprilsam_tpu_torch.replay_checks import (MIXED_CONFIG,
+                                                  big_bucket_signatures)
+
+    s = IncrementalSolver(SolverConfig(**MIXED_CONFIG), device="cpu")
+    sigs = s.default_signatures(3500)
+    extra = big_bucket_signatures(s, 3500)
+    assert extra and not set(extra) & set(sigs)
+    full = [x for x in list(sigs) + extra if x[0] == "full"]
+    npanbs = {x[3] for x in full}
+    assert {(x[1], x[3]) for x in full} == {
+        (b, n) for b in s.cfg.frontal_buckets for n in npanbs}

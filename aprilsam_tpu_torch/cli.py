@@ -49,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no_wallclock_gate", action="store_true",
                     help="disable the batch_time/3 wall-clock fallback gate")
     ap.add_argument("--show_timing", action="store_true",
-                    help="print per-step stage timing (plan/dispatch/policy)")
+                    help="print each step's spans (name, ms, self ms)")
     ap.add_argument("--ordering", choices=["md", "heapmd"], default="md",
                     help="fill-reducing ordering: md (default) or the "
                          "reference's bucketed-heap scheme")

@@ -34,6 +34,7 @@ from .graph import FactorGraph, FACTOR_XYT
 from .geometry import np_xyt_inv, np_xyt_mul
 from .solver import BatchSolver, SolverConfig
 from .solver.incremental import IncrementalSolver, SeedSpec
+from .utils import trace
 
 GEOPIN_W = np.diag([10000.0, 10000.0, 1000.0])
 
@@ -65,6 +66,8 @@ class Replay:
         self.event_idx = 0
         self.total_ms = 0.0
         self.results: List[StepResult] = []
+        if self.cfg.show_timing:
+            trace.enable()      # run(verbose=True) prints each step's spans
 
         # group loaded factors by their max endpoint (preserving file order,
         # aprilsam_demo.c:150-163), pre-sliced per step with the seed specs
@@ -136,31 +139,34 @@ class Replay:
             g.l_point[s.dst] = g.state[s.dst]
 
     def step(self) -> Optional[StepResult]:
-        seeds = self._add_pose()
-        if seeds is None:
-            return None
-        t0 = time.perf_counter()
-        if self.batch_update_only:
-            self._apply_seeds_host(seeds)
-            info = self.solver.solve(self.graph)
-        elif self.event_idx <= 1:
-            # step 0 of incremental mode: batch (aprilsam_demo.c:224-228)
-            info = self.solver.solve(self.graph)
-        else:
-            info = self.solver.update(self.graph, seeds=seeds)
-        chi2 = info.chi2 if info is not None else math.nan
-        ms = (time.perf_counter() - t0) * 1e3
-        self.total_ms += ms
-        if self.batch_update_only:
-            self.solver.sync_states(self.graph)
-        res = StepResult(
-            step=self.event_idx - 1, chi2=chi2, step_ms=ms,
-            total_ms=self.total_ms,
-            path=getattr(self.solver, "last_path", "batch"),
-            naffected=getattr(self.solver, "last_naffected", 0),
-        )
-        self.results.append(res)
-        return res
+        trace.follow_profiler()
+        with trace.span("step", step=self.event_idx):
+            with trace.span("step.add_pose"):
+                seeds = self._add_pose()
+            if seeds is None:
+                return None
+            t0 = time.perf_counter()
+            if self.batch_update_only:
+                self._apply_seeds_host(seeds)
+                info = self.solver.solve(self.graph)
+            elif self.event_idx <= 1:
+                # step 0 of incremental mode: batch (aprilsam_demo.c:224-228)
+                info = self.solver.solve(self.graph)
+            else:
+                info = self.solver.update(self.graph, seeds=seeds)
+            chi2 = info.chi2 if info is not None else math.nan
+            ms = (time.perf_counter() - t0) * 1e3
+            self.total_ms += ms
+            if self.batch_update_only:
+                self.solver.sync_states(self.graph)
+            res = StepResult(
+                step=self.event_idx - 1, chi2=chi2, step_ms=ms,
+                total_ms=self.total_ms,
+                path=getattr(self.solver, "last_path", "batch"),
+                naffected=getattr(self.solver, "last_naffected", 0),
+            )
+            self.results.append(res)
+            return res
 
     def run(self, max_steps: Optional[int] = None, verbose: bool = False):
         n = 0
@@ -175,9 +181,8 @@ class Replay:
                     f"Step running time: {res.step_ms:.3f} ms, "
                     f"Total running time: {res.total_ms:.3f} ms"
                 )
-                tp = getattr(self.solver, "tp", None)
-                if tp is not None and len(tp.stamps) > 1:
-                    print(tp.display())
+                if trace.ON:
+                    print("\n".join(trace.lines(trace.collect())))
             n += 1
         self.finish()
         return self.results

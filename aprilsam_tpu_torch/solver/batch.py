@@ -41,7 +41,7 @@ import torch
 from ..geometry import mod2pi
 from ..graph import FactorGraph
 from ..kernels.assembly import assemble_block_dense
-from ..utils import GraphCache, resolve_device, setup_precision
+from ..utils import GraphCache, resolve_device, setup_precision, trace
 from .config import SolverConfig
 from .state import DeviceState, full, init_device_state, state_chi2
 from .symbolic import SymbolicState
@@ -318,33 +318,40 @@ def run_batch_epoch(ds: DeviceState, cfg: SolverConfig, nnodes: int,
     call.  `graphs` replays the epoch's graphs (eager when disabled).
     Returns (ds, sym, info, backend) with backend "panel" or "dense"."""
     NCAP = cfg.node_capacity
-    sym, patterns, valid = epoch_symbolic(cfg, nnodes, ftypes, fnodes)
+    with trace.span("epoch.symbolic"):
+        sym, patterns, valid = epoch_symbolic(cfg, nnodes, ftypes, fnodes)
 
     if cfg.batch_backend == "panel" and cfg.effective_gn_iters == 1:
         from .panel_epoch import build_panel_plan, panel_epoch_step
 
-        plan = build_panel_plan(cfg, nnodes, sym, sym.pad_idx, sym.pad_nnz,
-                                ftypes, fnodes)
-        if plan is None:
-            # escalate to the roomy grade-1 caps before giving up
+        with trace.span("epoch.plan"):
             plan = build_panel_plan(cfg, nnodes, sym, sym.pad_idx,
-                                    sym.pad_nnz, ftypes, fnodes, grade=1)
+                                    sym.pad_nnz, ftypes, fnodes)
+            if plan is None:
+                # escalate to the roomy grade-1 caps before giving up
+                plan = build_panel_plan(cfg, nnodes, sym, sym.pad_idx,
+                                        sym.pad_nnz, ftypes, fnodes, grade=1)
         if plan is not None:
-            chi2, spd = panel_epoch_step(ds, plan, cfg.tikhonov,
-                                         cfg.panel_nodes, log_mode, graphs)
-            return ds, sym, _info(chi2, spd, nnodes, lazy), "panel"
+            with trace.span("epoch.solve"):
+                chi2, spd = panel_epoch_step(ds, plan, cfg.tikhonov,
+                                             cfg.panel_nodes, log_mode,
+                                             graphs)
+                info = _info(chi2, spd, nnodes, lazy)
+            return ds, sym, info, "panel"
         if 3 * node_bucket(nnodes, NCAP) > 16384:
             # the dense [3MB, 3MB] epoch would not fit either
             raise PanelFallbackError(
                 f"panel plan overflow at n={nnodes}; dense infeasible")
 
-    ext_p, ext_slot = np.nonzero(valid)
-    pos, order = full_maps(NCAP, sym)
-    out = dense_epoch(ds, cfg, nnodes, dict(
-        R_idx=sym.pad_idx, R_nnz=sym.pad_nnz, pos=pos, order=order,
-        ext_p=ext_p, ext_slot=ext_slot, ext_c=patterns[valid]), log_mode,
-        graphs)
-    return ds, sym, _info(out[0], out[1] > 0.5, nnodes, lazy), "dense"
+    with trace.span("epoch.solve"):
+        ext_p, ext_slot = np.nonzero(valid)
+        pos, order = full_maps(NCAP, sym)
+        out = dense_epoch(ds, cfg, nnodes, dict(
+            R_idx=sym.pad_idx, R_nnz=sym.pad_nnz, pos=pos, order=order,
+            ext_p=ext_p, ext_slot=ext_slot, ext_c=patterns[valid]), log_mode,
+            graphs)
+        info = _info(out[0], out[1] > 0.5, nnodes, lazy)
+    return ds, sym, info, "dense"
 
 
 class BatchSolver:

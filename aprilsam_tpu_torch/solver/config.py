@@ -123,6 +123,8 @@ class SolverConfig:
             return self.metric_log_capacity
         return 2 * self.node_capacity
 
+    # a Replay on this config turns the span recorder on (utils/trace.py),
+    # and its run(verbose=True) prints each step's spans
     show_timing: bool = False
 
     @property

@@ -19,7 +19,7 @@ import torch
 
 from .. import native
 from ..graph import FACTOR_XYT
-from ..utils import GraphCache
+from ..utils import GraphCache, trace
 from .batch import BatchInfo
 from .config import SolverConfig
 from .state import DeviceState, full
@@ -199,43 +199,48 @@ def host_batch_epoch(
     NCAP = cfg.node_capacity
     BCAP = cfg.row_block_capacity
 
-    order, patterns, nnz, parents = native_symbolic(cfg, nnodes, ftypes,
-                                                    fnodes)
+    with trace.span("epoch.symbolic"):
+        order, patterns, nnz, parents = native_symbolic(cfg, nnodes, ftypes,
+                                                        fnodes)
 
     # current states come from the device (one read; batches are rare)
-    states = ds.state[:nnodes].cpu().numpy().astype(np.float64)
+    with trace.span("epoch.state_read"):
+        states = ds.state[:nnodes].cpu().numpy().astype(np.float64)
 
     m_xyt = ftypes == FACTOR_XYT
     cur = states
-    for _ in range(max(1, cfg.effective_gn_iters)):
-        blocks, y, x, new_states, delta, chi2, spd = native.batch_solve(
-            nnodes, cur,
-            fnodes[m_xyt, 0], fnodes[m_xyt, 1], fz[m_xyt], fW[m_xyt],
-            fnodes[~m_xyt, 0], fz[~m_xyt], fW[~m_xyt],
-            order, BCAP, patterns, nnz, cfg.tikhonov,
-        )
-        states = cur  # linearization points of the final iteration
-        cur = new_states
+    with trace.span("epoch.solve"):
+        for _ in range(max(1, cfg.effective_gn_iters)):
+            blocks, y, x, new_states, delta, chi2, spd = native.batch_solve(
+                nnodes, cur,
+                fnodes[m_xyt, 0], fnodes[m_xyt, 1], fz[m_xyt], fW[m_xyt],
+                fnodes[~m_xyt, 0], fz[~m_xyt], fW[~m_xyt],
+                order, BCAP, patterns, nnz, cfg.tikhonov,
+            )
+            states = cur  # linearization points of the final iteration
+            cur = new_states
 
     # the SymbolicState mirror for the incremental engine
-    pos = np.empty(nnodes, dtype=np.int32)
-    pos[order] = np.arange(nnodes, dtype=np.int32)
-    sym = SymbolicState(
-        order=order, pos=pos,
-        patterns=[patterns[p, : nnz[p]].copy() for p in range(nnodes)],
-        parents=parents.copy(),
-    )
-    sym.rebuild_children()
+    with trace.span("epoch.mirror"):
+        pos = np.empty(nnodes, dtype=np.int32)
+        pos[order] = np.arange(nnodes, dtype=np.int32)
+        sym = SymbolicState(
+            order=order, pos=pos,
+            patterns=[patterns[p, : nnz[p]].copy() for p in range(nnodes)],
+            parents=parents.copy(),
+        )
+        sym.rebuild_children()
 
     # pattern padding (>= nnodes) becomes the device sentinel NCAP.  The
     # stored linearization points are the pre-update states: relinearize-
     # all happened BEFORE the solve (aprilsam.c:131-135), and R/y are
     # consistent with them.
-    idx = patterns.astype(np.int64)
-    idx[idx >= nnodes] = NCAP
-    ints, floats, ptr_after = expand_inputs(
-        ds, cfg, nnodes, blocks, idx, nnz, y.reshape(nnodes, 3), new_states,
-        states, delta, pos, order, chi2, log_mode)
-    expand(ds, ints, floats, graphs)
+    with trace.span("epoch.expand"):
+        idx = patterns.astype(np.int64)
+        idx[idx >= nnodes] = NCAP
+        ints, floats, ptr_after = expand_inputs(
+            ds, cfg, nnodes, blocks, idx, nnz, y.reshape(nnodes, 3),
+            new_states, states, delta, pos, order, chi2, log_mode)
+        expand(ds, ints, floats, graphs)
     ds.log_ptr = ptr_after
     return ds, sym, BatchInfo(chi2=chi2, spd=spd, n=nnodes)

@@ -75,8 +75,7 @@ from ..graph import FactorGraph, FACTOR_XYT
 from ..factors import eval_xyt, eval_xytpos
 from ..kernels.linalg3 import chol3, solve_upper3
 from ..kernels.sweep import panel_backsub, panel_backsub_windowed
-from ..utils import GraphCache, resolve_device, setup_precision
-from ..utils.timeprofile import TimeProfile
+from ..utils import GraphCache, resolve_device, setup_precision, trace
 from .batch import BatchInfo, PanelFallbackError, run_batch_epoch
 from .config import SolverConfig
 from .ingest import ingest_graph
@@ -911,7 +910,10 @@ class _Pending:
 
     def read(self) -> np.ndarray:
         if self.done is not None:
-            self.done.synchronize()
+            if trace.ON and not self.done.query():
+                trace.count("stats.waits")
+            with trace.span("solver.stats_wait"):
+                self.done.synchronize()
         stats = self.stats.numpy()
         return stats[self.row] if self.row >= 0 else stats
 
@@ -988,7 +990,6 @@ class IncrementalSolver:
         self._sweep_serial = 0
         # the pure-python planner in place of the native one (tests)
         self.python_planner = False
-        self.tp = TimeProfile() if self.cfg.show_timing else None
 
     # ---------------------------------------------------------------
 
@@ -1043,7 +1044,8 @@ class IncrementalSolver:
                          caps: Tuple[int, int, int]) -> None:
         knode, kseed, K = caps
         ds = self.ds
-        ints, floats = tail_inputs(ds, tail, K, knode, kseed)
+        with trace.span("solver.inputs"):
+            ints, floats = tail_inputs(ds, tail, K, knode, kseed)
         self.graphs.run(("ingest", knode, kseed, K), ds, ints, floats,
                         lambda P: inc_ingest_tail(ds, P))
         advance_counts(ds, tail, False)
@@ -1054,15 +1056,17 @@ class IncrementalSolver:
             row_block_capacity=int(self.cfg.row_block_capacity * 3 // 2))
         NCAP, BCAP = cfg.node_capacity, cfg.row_block_capacity
         ds = self.ds
-        ds.R_blocks = with_dump_row(torch.zeros(
-            (NCAP, BCAP, 3, 3), dtype=ds.R_blocks.dtype, device=ds.device))
-        ds.R_idx = with_dump_row(torch.full(
-            (NCAP, BCAP), NCAP, dtype=torch.int64, device=ds.device))
-        ds.R_nnz = with_dump_row(torch.zeros(NCAP, dtype=torch.int64,
-                                             device=ds.device))
-        self.cfg = cfg
-        # the graphs read the freed tables
-        self.graphs.bump()
+        with trace.span("solver.grow"):
+            ds.R_blocks = with_dump_row(torch.zeros(
+                (NCAP, BCAP, 3, 3), dtype=ds.R_blocks.dtype,
+                device=ds.device))
+            ds.R_idx = with_dump_row(torch.full(
+                (NCAP, BCAP), NCAP, dtype=torch.int64, device=ds.device))
+            ds.R_nnz = with_dump_row(torch.zeros(NCAP, dtype=torch.int64,
+                                                 device=ds.device))
+            self.cfg = cfg
+            # the graphs read the freed tables
+            self.graphs.bump()
 
     def _maybe_grow_capacity(self, g: FactorGraph) -> None:
         """Double node/factor capacities before the incoming step could
@@ -1086,46 +1090,47 @@ class IncrementalSolver:
 
         # buffered and queued steps land in the old-capacity state first
         self._dispatch_queue()
-        t0 = time.perf_counter()
-        cuda = self.device.type == "cuda"
-        reserved = torch.cuda.memory_reserved(self.device) if cuda else 0
-        old = state_to_numpy(self.ds)
-        old_ncap = cfg.node_capacity
-        self.cfg = dataclasses.replace(cfg, node_capacity=ncap,
-                                       factor_capacity=fcap)
-        h = state_to_numpy(init_device_state(self.cfg, "cpu"))
-        for name, src in old.items():
-            if src.ndim == 0:
-                h[name] = src
-                continue
-            h[name][tuple(slice(0, s) for s in src.shape)] = src
-        # the pattern padding used the OLD capacity
-        h["R_idx"][h["R_idx"] >= old_ncap] = ncap
-        # identity position map beyond the old capacity
-        h["pos"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
-        h["order"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
-        # the graphs read the old state's tensors; what the old state and
-        # its graphs held is sized for the old capacity: give it back
-        self.ds = None
-        self.graphs.bump()
-        if cuda:
-            torch.cuda.empty_cache()
-        self.ds = state_from_numpy(h, self.device)
-        self.growths.append({
-            "step": g.nnodes - 1, "node_capacity": ncap,
-            "factor_capacity": fcap,
-            "ms": (time.perf_counter() - t0) * 1e3,
-            "reserved_before": reserved,
-            "reserved_after": (torch.cuda.memory_reserved(self.device)
-                               if cuda else 0)})
+        with trace.span("solver.grow"):
+            t0 = time.perf_counter()
+            cuda = self.device.type == "cuda"
+            reserved = torch.cuda.memory_reserved(self.device) if cuda else 0
+            old = state_to_numpy(self.ds)
+            old_ncap = cfg.node_capacity
+            self.cfg = dataclasses.replace(cfg, node_capacity=ncap,
+                                           factor_capacity=fcap)
+            h = state_to_numpy(init_device_state(self.cfg, "cpu"))
+            for name, src in old.items():
+                if src.ndim == 0:
+                    h[name] = src
+                    continue
+                h[name][tuple(slice(0, s) for s in src.shape)] = src
+            # the pattern padding used the OLD capacity
+            h["R_idx"][h["R_idx"] >= old_ncap] = ncap
+            # identity position map beyond the old capacity
+            h["pos"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
+            h["order"][old_ncap:] = np.arange(old_ncap, ncap, dtype=np.int32)
+            # the graphs read the old state's tensors; what the old state and
+            # its graphs held is sized for the old capacity: give it back
+            self.ds = None
+            self.graphs.bump()
+            if cuda:
+                torch.cuda.empty_cache()
+            self.ds = state_from_numpy(h, self.device)
+            self.growths.append({
+                "step": g.nnodes - 1, "node_capacity": ncap,
+                "factor_capacity": fcap,
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "reserved_before": reserved,
+                "reserved_after": (torch.cuda.memory_reserved(self.device)
+                                   if cuda else 0)})
 
-        # the native planner mirror is capacity-sized: rebuild it lazily
-        sym = self.sym
-        if sym is not None and getattr(sym, "pad_idx", None) is not None:
-            sym.patterns = sym_patterns_list(sym)
-            sym.patterns_stale = False
-            sym.pad_idx = None
-            sym.pad_nnz = None
+            # the native planner mirror is capacity-sized: rebuild it lazily
+            sym = self.sym
+            if sym is not None and getattr(sym, "pad_idx", None) is not None:
+                sym.patterns = sym_patterns_list(sym)
+                sym.patterns_stale = False
+                sym.pad_idx = None
+                sym.pad_nnz = None
 
     def _run_batch(self, g: FactorGraph, record_time: bool = False,
                    log_mode: int = 0, nnodes: int = None,
@@ -1149,8 +1154,6 @@ class IncrementalSolver:
                 and self.device.type == "cuda":
             # the recorded batch time feeds the wall-clock gate
             torch.cuda.synchronize(self.device)
-        if self.tp is not None:
-            self.tp.stamp("batch_epoch")
         if record_time:
             # param->batch_time is recorded only when a batch is triggered
             # from the incremental path (aprilsam.c:568-572)
@@ -1177,22 +1180,24 @@ class IncrementalSolver:
         from .host_batch import host_batch_epoch
 
         head = (self.cfg, nn, g.ftype[:nf], g.fnodes[:nf])
-        if not self._use_host_batch():
-            try:
-                self.ds, self.sym, info, backend = run_batch_epoch(
-                    self.ds, *head, log_mode=log_mode,
-                    lazy=self.cfg.policy_lag > 0, graphs=self.graphs)
-                self.counters["epoch_" + backend] += 1
-                return info
-            except PanelFallbackError:
-                # no panel plan at either grade where the dense epoch would
-                # not fit: the float64 host epoch (the JAX package's rule)
-                pass
-        self.ds, self.sym, info = host_batch_epoch(
-            self.ds, *head, g.fz[:nf], g.fW[:nf], log_mode=log_mode,
-            graphs=self.graphs)
-        self.counters["epoch_host"] += 1
-        return info
+        with trace.span("epoch"):
+            if not self._use_host_batch():
+                try:
+                    self.ds, self.sym, info, backend = run_batch_epoch(
+                        self.ds, *head, log_mode=log_mode,
+                        lazy=self.cfg.policy_lag > 0, graphs=self.graphs)
+                    self.counters["epoch_" + backend] += 1
+                    return info
+                except PanelFallbackError:
+                    # no panel plan at either grade where the dense epoch
+                    # would not fit: the float64 host epoch (the JAX
+                    # package's rule)
+                    pass
+            self.ds, self.sym, info = host_batch_epoch(
+                self.ds, *head, g.fz[:nf], g.fW[:nf], log_mode=log_mode,
+                graphs=self.graphs)
+            self.counters["epoch_host"] += 1
+            return info
 
     def solve(self, g: FactorGraph) -> BatchInfo:
         """Full batch solve (april_graph_cholesky)."""
@@ -1251,7 +1256,8 @@ class IncrementalSolver:
                     self.batch_time_ms * self.cfg.batch_time_fraction
                     for p in fresh)):
             self._due_since_poll = 0
-            self._run_batch(g, record_time=True, log_mode=mode)
+            with trace.span("solver.policy"):
+                self._run_batch(g, record_time=True, log_mode=mode)
             return
         if block_all or self._due_since_poll >= self.cfg.policy_poll:
             if block_all:
@@ -1260,7 +1266,9 @@ class IncrementalSolver:
                 ready = [q for q in fresh if q.is_ready()]
                 p = ready[-1] if ready else fresh[0]
             self._due_since_poll = 0
-            self._apply_policy(p.read(), p.dispatched_after_batch, 0.0, g)
+            with trace.span("solver.policy"):
+                self._apply_policy(p.read(), p.dispatched_after_batch, 0.0,
+                                   g)
 
     def _defer(self, stats: torch.Tensor, k: int) -> None:
         """Queue a dispatch's stats (covering k steps) for the lagged
@@ -1298,19 +1306,16 @@ class IncrementalSolver:
         if self.cfg.superstep_size > 1:
             return self._update_superstep(g, seeds)
 
-        if self.tp is not None:
-            self.tp.reset()
         t0 = time.perf_counter()
         try:
-            plan = plan_step(self.sym, self.cfg, g, self.factor_num,
-                             g.nfactors, self.node_num, seeds,
-                             python_planner=self.python_planner)
+            with trace.span("solver.plan"):
+                plan = plan_step(self.sym, self.cfg, g, self.factor_num,
+                                 g.nfactors, self.node_num, seeds,
+                                 python_planner=self.python_planner)
         except OverflowError:
             plan = None
         self.factor_num = g.nfactors
         self.node_num = g.nnodes
-        if self.tp is not None:
-            self.tp.stamp("plan")
 
         if plan is None:
             # plan overflow -> batch fallback; queued steps land first,
@@ -1336,15 +1341,16 @@ class IncrementalSolver:
         self.steps_done += 1
         if self.cfg.policy_lag > 0:
             self._defer(stats, 1)
-            if self.tp is not None:
-                self.tp.stamp("dispatch")
             self._drain_pending(g)
             return None
-        s = stats.cpu().numpy()
-        if self.tp is not None:
-            self.tp.stamp("dispatch")
+        if trace.ON and stats.device.type == "cuda" and not \
+                torch.cuda.current_stream(stats.device).query():
+            trace.count("stats.waits")      # the read below waits
+        with trace.span("solver.stats_wait"):
+            s = stats.cpu().numpy()
         step_ms = (time.perf_counter() - t0) * 1e3
-        info = self._apply_policy(s, self._batch_serial, step_ms, g)
+        with trace.span("solver.policy"):
+            info = self._apply_policy(s, self._batch_serial, step_ms, g)
         if info is not None:
             return info
         return BatchInfo(chi2=float(s[0]), spd=bool(s[2] > 0.5), n=g.nnodes)
@@ -1371,7 +1377,9 @@ class IncrementalSolver:
         else:
             knode, kseed, K = KNODE, KSEED, cfg.new_factor_capacity
         extra = {} if panels is None else {"panels": panels}
-        ints, floats = step_inputs(ds, plan, K, knode, kseed, log, **extra)
+        with trace.span("solver.inputs"):
+            ints, floats = step_inputs(ds, plan, K, knode, kseed, log,
+                                       **extra)
         if kind == "fast":
             key = ("fast", M)
             body = lambda P: _fast_body(ds, P, M, dxy, dth, log)
@@ -1439,8 +1447,6 @@ class IncrementalSolver:
         self.steps_done += 1
         if len(self._queue) >= cap:
             self._dispatch_queue()
-            if self.tp is not None:
-                self.tp.stamp("dispatch_bundle")
         self._drain_pending(g)
         return None
 
@@ -1577,8 +1583,6 @@ class IncrementalSolver:
         self.last_path = "super"
         if len(self._sbuf) >= self.cfg.superstep_size:
             self._dispatch_superstep()
-            if self.tp is not None:
-                self.tp.stamp("dispatch_super")
         self._drain_pending(g)
         return None
 
@@ -1626,18 +1630,15 @@ class IncrementalSolver:
 
         cfg = self.cfg
         knode, kseed, kfac = _sup_caps(cfg)
-        if self.tp is not None:
-            self.tp.reset()
         try:
-            plan = plan_step(self.sym, cfg, g, f0, f1, n_old, seeds_u,
-                             python_planner=self.python_planner,
-                             knode=knode, kseed=kseed, kfac=kfac,
-                             buckets=cfg.effective_superstep_buckets,
-                             n_end=n1)
+            with trace.span("solver.plan"):
+                plan = plan_step(self.sym, cfg, g, f0, f1, n_old, seeds_u,
+                                 python_planner=self.python_planner,
+                                 knode=knode, kseed=kseed, kfac=kfac,
+                                 buckets=cfg.effective_superstep_buckets,
+                                 n_end=n1)
         except OverflowError:
             plan = None
-        if self.tp is not None:
-            self.tp.stamp("plan_super")
         if plan is None:
             # union beyond the largest bucket -> batch fallback, bounded to
             # the buffered span (a capacity flush dispatches while the
@@ -1694,12 +1695,13 @@ class IncrementalSolver:
         """End of a replay: dispatch the buffered steps, clear any sweep
         staleness with one whole-graph sweep, and apply the policy to
         every pending entry."""
-        self._dispatch_queue()
-        if self._sweep_stale:
-            self.counters["sweep_flush"] += 1
-            self._dispatch_sweep(self._npanb(g.nnodes), self.ds.nnodes)
-            self._sweep_stale = False
-        self._drain_pending(g, block_all=True)
+        with trace.span("solver.flush"):
+            self._dispatch_queue()
+            if self._sweep_stale:
+                self.counters["sweep_flush"] += 1
+                self._dispatch_sweep(self._npanb(g.nnodes), self.ds.nnodes)
+                self._sweep_stale = False
+            self._drain_pending(g, block_all=True)
 
     # ------------------------------------------------- ahead of time
 

@@ -38,6 +38,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..utils import trace
 from .config import SolverConfig
 from .symbolic import SymbolicState
 
@@ -199,6 +200,8 @@ def upload(ds: DeviceState, ints: Dict[str, np.ndarray],
         if not arrays:
             continue
         host, offs = _host_copy(arrays, dtype, cuda)
+        if cuda:
+            trace.count("graphs.upload_bytes", host.nbytes)
         dev = host.to(ds.device, non_blocking=True) if cuda else host
         for (name, a), o in zip(arrays.items(), offs):
             out[name] = dev[o:o + np.size(a)].view(np.shape(a))
@@ -240,6 +243,7 @@ class StaticInputs:
                                  "input shapes")
             if arrays:
                 host, _offs = _host_copy(arrays, dtype, True)
+                trace.count("graphs.upload_bytes", host.nbytes)
                 buf.copy_(host, non_blocking=True)
 
 

@@ -47,6 +47,8 @@ from typing import Callable, Dict, Hashable, Optional, Tuple
 import numpy as np
 import torch
 
+from . import trace
+
 
 def setup_precision() -> None:
     """Keep float32 products in full float32 on the card.
@@ -125,19 +127,32 @@ class GraphCache:
         signature overwrites: copy it before then); the first dispatch of a
         signature runs eagerly, then captures the graph."""
         from ..kernels import tri_inv
-        from ..solver.state import StaticInputs, upload
+        from ..solver.state import upload
 
-        if not self.enabled:
-            return body(upload(ds, ints, floats))
-        self._check_state(ds)
-        self.calls[key[0]] += 1
-        cap = self.graphs.get(key)
-        if cap is not None:
-            cap.inputs.load(ints, floats)
-            cap.graph.replay()
-            tri_inv.count_replay(cap.k1)
-            self.replayed[key[0]] += 1
-            return cap.out
+        with trace.span("graphs.dispatch"):
+            if not self.enabled:
+                with trace.span("graphs.upload"):
+                    P = upload(ds, ints, floats)
+                return body(P)
+            self._check_state(ds)
+            self.calls[key[0]] += 1
+            cap = self.graphs.get(key)
+            if cap is not None:
+                with trace.span("graphs.upload"):
+                    cap.inputs.load(ints, floats)
+                with trace.span("graphs.replay"):
+                    cap.graph.replay()
+                tri_inv.count_replay(cap.k1)
+                self.replayed[key[0]] += 1
+                return cap.out
+            with trace.span("graphs.capture"):
+                return self._capture(key, ds, ints, floats, body)
+
+    def _capture(self, key, ds, ints, floats, body) -> torch.Tensor:
+        """A signature's first dispatch: its eager run, then the capture
+        of its graph."""
+        from ..kernels import tri_inv
+        from ..solver.state import StaticInputs, upload
 
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
@@ -151,21 +166,22 @@ class GraphCache:
             out = torch.empty_like(first)
             out.copy_(first)
             inputs = StaticInputs(ds, ints, floats)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        tri_inv.capture_record = {}
-        try:
-            with torch.cuda.stream(s):
-                graph.capture_begin(pool=self._pool)
-                try:
-                    out.copy_(body(inputs.P))
-                finally:
-                    graph.capture_end()
-            k1 = tri_inv.capture_record
-        finally:
-            tri_inv.capture_record = None
-        cur.wait_stream(s)
-        secs = time.perf_counter() - t0
+        with trace.span("graphs.capture_graph"):
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            tri_inv.capture_record = {}
+            try:
+                with torch.cuda.stream(s):
+                    graph.capture_begin(pool=self._pool)
+                    try:
+                        out.copy_(body(inputs.P))
+                    finally:
+                        graph.capture_end()
+                k1 = tri_inv.capture_record
+            finally:
+                tri_inv.capture_record = None
+            cur.wait_stream(s)
+            secs = time.perf_counter() - t0
         self.graphs[key] = Captured(graph, inputs, out, k1, secs)
         self.captures += 1
         gen = self.by_generation.setdefault(

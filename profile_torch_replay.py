@@ -6,12 +6,14 @@ Replays manhattan_world(3500, seed=0) through aprilsam_tpu_torch's Replay on
 the card in float64, twice, and prints JSON lines.
 
 First the per-step replay (default SolverConfig, wall-clock gate off,
-per-stage timing on), the smoke run's main path:
+show_timing on: the port's spans recorded, utils/trace.py), the smoke
+run's main path:
   * "paths": step count, mean and total host milliseconds of the fast, full
     and batch steps, outside the profiled window;
-  * "stages": host milliseconds per solver stage (plan = host planning,
-    dispatch = the device step up to its stats readback, batch_epoch = the
-    native host epoch and its upload), summed outside the window;
+  * "stages_ms": host self milliseconds of each span (solver.plan = host
+    planning, graphs.dispatch = a dispatch, solver.stats_wait = the wait
+    for the step's stats, epoch.* = a batch epoch's phases, ...), summed
+    outside the window;
   * "window": torch.profiler over steps [2000, 2300): wall seconds, device busy
     milliseconds (the sum of device-side self time, one stream), the idle
     share, device events per step, and the ten largest device operations.
@@ -107,6 +109,7 @@ def main() -> int:
     from aprilsam_tpu_torch.datasets import manhattan_world
     from aprilsam_tpu_torch.replay import Replay
     from aprilsam_tpu_torch.solver import SolverConfig
+    from aprilsam_tpu_torch.utils import trace
     from aprilsam_tpu_torch.utils.trace import device_rows, top
 
     lo, hi = WINDOW
@@ -132,17 +135,15 @@ def main() -> int:
             torch.cuda.synchronize()
             t_win = time.perf_counter() - t_win
             prof.__exit__(None, None, None)
+        spans = trace.collect()["spans"]
         if lo <= k < hi:
             continue
         paths[res.path].append(res.step_ms)
-        tp = rep.solver.tp
-        if k > 0:                  # step 0 is solve(), which keeps no stamps
-            prev = tp.stamps[0][1]
-            for name, t in tp.stamps[1:]:
-                stages[name] += (t - prev) * 1e3
-                prev = t
+        for name, s in spans.items():
+            stages[name] += s["self_ms"]
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t_all
+    trace.disable()
     card = torch.cuda.get_device_name(0)
 
     print(json.dumps({"card": card, "poses": POSES, "dtype": "float64",

@@ -4,8 +4,9 @@ The port of ``aprilsam_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It imports neither JAX nor the JAX package: the host layer (graph, IO,
 symbolic planning, the native C runtime) is its own copy, the device layer
 is PyTorch, and the TPU's Pallas kernel is a hand-written CUDA kernel
-(csrc/tri_inv.cu).  Entry points run on the card unless the caller passes
-``device="cpu"``.
+(csrc/tri_inv.cu), as is the frontal QR update of the per-step path
+(csrc/frontal_qr.cu).  Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from .graph import Attributes, FactorGraph, FACTOR_XYT, FACTOR_XYTPOS

@@ -30,14 +30,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..utils.build import build_shared_library
+from ..utils.build import build_shared_library, nvcc
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "tri_inv.cu")
@@ -57,20 +56,8 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin); the tri_inv kernel cannot "
-                           "be built")
-    return nvcc
-
-
 def _command(out: str):
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+    return [nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-o", out, SRC]
 

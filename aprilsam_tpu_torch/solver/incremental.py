@@ -73,6 +73,7 @@ import torch
 from ..geometry import mod2pi, xyt_inv, xyt_mul
 from ..graph import FactorGraph, FACTOR_XYT
 from ..factors import eval_xyt, eval_xytpos
+from ..kernels.frontal_qr import frontal_qr, frontal_qr_plain
 from ..kernels.linalg3 import chol3, solve_upper3
 from ..kernels.sweep import panel_backsub, panel_backsub_windowed
 from ..utils import GraphCache, resolve_device, setup_precision, trace
@@ -92,6 +93,10 @@ KSEED = 4   # max odometry seedings per step
 # (an exact, un-pruned solve), as in the JAX package.
 MIXED_FR = 32
 FRCAP = 128  # fringe capacity handed to the native planner
+# The frontal QR on the card: kernel K2 for signatures of at most this many
+# new factors of each type (every per-step signature); above it (supersteps)
+# cuSOLVER's dense QR, which measured faster there (PERF.md, section 6).
+KERNEL_MAX_FACTORS = 32
 # Mixed bundles (as in the JAX package): the affected-set buckets whose
 # full steps share a bundle with fast steps (a fast step must fit the
 # first), and the word budget of one dispatch of the JAX package's packed
@@ -622,19 +627,20 @@ def _frontal_core(ds: DeviceState, P: Dict[str, torch.Tensor], M: int):
     pos_rows = _measurement_rows(Wh_pos, [(P["np_slot"], Wh_pos)], M)
     pos_rhs = (Wh_pos @ evp.r[:, :, None]).reshape(-1)
 
-    C = torch.cat([R_dense, xyt_rows, pos_rows], dim=0)
-    d_stack = torch.cat([y_F, xyt_rhs, pos_rhs], dim=0)
+    A = torch.cat([xyt_rows, pos_rows], dim=0)
+    rhs = torch.cat([xyt_rhs, pos_rhs], dim=0)
 
-    # ---------------- thin QR refactor (aprilsam.c:850-906)
-    Q, Rq = torch.linalg.qr(C, mode="reduced")
-    sgn = torch.where(torch.diagonal(Rq) < 0, -1.0, 1.0).to(dtype)
-    R_up = sgn[:, None] * Rq
+    # ---------------- QR refactor (aprilsam.c:850-906) and the forward
+    # solve on y (aprilsam.c:702-719): y' = Q^T d.  On the card K2 over the
+    # live columns and rows (R_dense and y_F updated in place); signatures
+    # of more factors than it takes keep cuSOLVER's dense QR
+    if dev.type == "cuda" and K > KERNEL_MAX_FACTORS:
+        R_up, y_new = frontal_qr_plain(R_dense, y_F, A, rhs)
+    else:
+        R_up, y_new = frontal_qr(R_dense, y_F, A, rhs, ctl)
     diag = torch.diagonal(R_up)
     spd = w_ok & torch.all(torch.where(
         live3, torch.isfinite(diag) & (diag > 0), True))
-
-    # forward solve on y (aprilsam.c:702-719): y' = Q^T d
-    y_new = sgn * (Q.T @ d_stack)
     y[F_pos] = y_new.reshape(M, 3)
 
     # ---------------- R' back on the NEW pattern: newblocks[r, b] =
@@ -961,13 +967,13 @@ class IncrementalSolver:
         # in bundles, the full steps whose sweep was coalesced and the
         # coalesced sweeps; in superstep mode the union front's size, the
         # supersteps without a sweep, the windowed sweeps and the sweeps
-        # flush() ran
+        # flush() ran; the live front columns (3 m) of the frontal dispatches
         self.counters = {"fast": 0, "full": 0, "batch": 0, "epoch_panel": 0,
                          "epoch_dense": 0, "epoch_host": 0,
                          "full_coalesced": 0, "sweep_coalesced": 0,
                          "superstep": 0, "sup_overflow": 0, "sup_m_max": 0,
                          "sup_m_sum": 0, "sup_nosweep": 0, "sweep_win": 0,
-                         "sweep_flush": 0}
+                         "sweep_flush": 0, "frontal_live_columns": 0}
         # capacity growths: the step that caused each, the capacities after
         # it, its host ms and, on the card, the memory reserved before and
         # after it
@@ -1398,6 +1404,7 @@ class IncrementalSolver:
             key = ("win", M, len(panels))
             body = lambda P: inc_superstep_win(ds, P, M, PANEL, dxy, dth, log)
         stats = self.graphs.run(key, ds, ints, floats, body)
+        self.counters["frontal_live_columns"] += 3 * plan.m
         advance_counts(ds, plan.tail, log and plan.m > 0)
         return stats
 

@@ -11,11 +11,25 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 from typing import Callable, List
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
+
+
+def nvcc() -> str:
+    """The CUDA compiler: on PATH, else under $CUDA_HOME or /usr/local/cuda."""
+    path = shutil.which("nvcc")
+    if path is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin); the CUDA kernels cannot "
+                           "be built")
+    return path
 
 
 def build_shared_library(src: str, stem: str,

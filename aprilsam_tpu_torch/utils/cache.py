@@ -27,6 +27,8 @@ Rules the cached graphs keep:
     stream (library handles, workspaces and K1's function attributes are
     set up there, never inside a capture); that first run is the dispatch's
     own, or precompile's dead one;
+  * the capture records the launches of the port's kernels (K1, K2), and
+    each replay adds that record to their counts;
   * a reallocation of the solver state drops every graph: the solver bumps
     `generation` where it reallocates, and run() compares the addresses of
     the state's tensors with those the graphs were captured on; each
@@ -70,6 +72,7 @@ class Captured:
     inputs: object                    # solver.state.StaticInputs
     out: torch.Tensor                 # the stats buffer the graph writes
     k1: Dict[Tuple[int, int, str], int]  # K1 launches per replay, by shape
+    k2: Dict[Tuple[int, int, str], int]  # K2 launches per replay, by shape
     seconds: float                    # capture time (eager run excluded)
 
 
@@ -126,7 +129,7 @@ class GraphCache:
         returned tensor is its stats buffer, which the next replay of the
         signature overwrites: copy it before then); the first dispatch of a
         signature runs eagerly, then captures the graph."""
-        from ..kernels import tri_inv
+        from ..kernels import frontal_qr, tri_inv
         from ..solver.state import upload
 
         with trace.span("graphs.dispatch"):
@@ -143,6 +146,7 @@ class GraphCache:
                 with trace.span("graphs.replay"):
                     cap.graph.replay()
                 tri_inv.count_replay(cap.k1)
+                frontal_qr.count_replay(cap.k2)
                 self.replayed[key[0]] += 1
                 return cap.out
             with trace.span("graphs.capture"):
@@ -151,7 +155,7 @@ class GraphCache:
     def _capture(self, key, ds, ints, floats, body) -> torch.Tensor:
         """A signature's first dispatch: its eager run, then the capture
         of its graph."""
-        from ..kernels import tri_inv
+        from ..kernels import frontal_qr, tri_inv
         from ..solver.state import StaticInputs, upload
 
         if self._stream is None:
@@ -170,6 +174,7 @@ class GraphCache:
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             tri_inv.capture_record = {}
+            frontal_qr.capture_record = {}
             try:
                 with torch.cuda.stream(s):
                     graph.capture_begin(pool=self._pool)
@@ -178,11 +183,13 @@ class GraphCache:
                     finally:
                         graph.capture_end()
                 k1 = tri_inv.capture_record
+                k2 = frontal_qr.capture_record
             finally:
                 tri_inv.capture_record = None
+                frontal_qr.capture_record = None
             cur.wait_stream(s)
             secs = time.perf_counter() - t0
-        self.graphs[key] = Captured(graph, inputs, out, k1, secs)
+        self.graphs[key] = Captured(graph, inputs, out, k1, k2, secs)
         self.captures += 1
         gen = self.by_generation.setdefault(
             self.generation, {"captures": 0, "seconds": 0.0})

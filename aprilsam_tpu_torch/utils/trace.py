@@ -139,9 +139,14 @@ def collect(solver=None) -> dict:
     time less the time its child spans cover; "records": [(name, start
     ns, end ns, parent, step)], parent an index into records or -1; and
     "counters": the recorder's, and where `solver` (an IncrementalSolver)
-    is given, its counters ("solver." + name) and its graph cache's
+    is given, its counters ("solver." + name), its graph cache's
     dispatches, replays and captures ("graphs.calls", "graphs.replayed",
-    "graphs.captures"), read where they are kept."""
+    "graphs.captures") and the frontal update's: the live columns of its
+    dispatches ("frontal.live_columns"), K2's launches since its
+    reset_launches() ("frontal.launches"), by shape
+    ("frontal.launches.<3M>x<p>.<dtype>") and the columns they cover
+    ("frontal.padded_columns": launches times 3M), read where they are
+    kept."""
     recs = list(zip(_name, _start, _end, _parent, _steps))
     counts = dict(_counts)
     _clear()
@@ -164,6 +169,15 @@ def collect(solver=None) -> dict:
         counters.update({"graphs.calls": sum(g.calls.values()),
                          "graphs.replayed": g.replays,
                          "graphs.captures": g.captures})
+        from ..kernels import frontal_qr
+        by_shape = frontal_qr.launches_by_shape
+        counters.update({
+            "frontal.live_columns": solver.counters["frontal_live_columns"],
+            "frontal.launches": frontal_qr.launches,
+            "frontal.padded_columns": sum(n * c for (n, _p, _d), c
+                                          in by_shape.items())})
+        counters.update({f"frontal.launches.{n}x{p}.{d}": c
+                         for (n, p, d), c in sorted(by_shape.items())})
     return {"spans": spans, "records": recs, "counters": counters}
 
 

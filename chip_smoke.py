@@ -6,8 +6,8 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
   1. device: the card's name and power limit (nvidia-smi); exits 1 when
      torch.cuda.is_available() is False;
-  2. build: the CUDA kernel tri_inv (nvcc, sm_90a) and the native C runtime,
-     in parallel, from the sources in this checkout, into
+  2. build: the CUDA kernels tri_inv and frontal_qr (nvcc, sm_90a) and the
+     native C runtime, in parallel, from the sources in this checkout, into
      aprilsam_tpu_torch/build/ (gitignored); the compiler's registers,
      static shared memory and spills for each kernel (-Xptxas -v);
   3. kernel K1 (tri_inv) against its plain PyTorch version on the card at
@@ -18,6 +18,13 @@ and prints no result line):
      yardstick's call times (CUDA events, after warm-up) beside the bound,
      and the device time of each CUDA kernel the kernel and the library
      launch (torch.profiler);
+  3b. kernel K2 (frontal_qr, the frontal QR update) against its plain
+     version (torch.linalg.qr, the sign flip, Q^T d; cuSOLVER on the card)
+     at the per-step buckets' live fronts of an M3500 pass and at superstep
+     shapes, float64 and float32: K2's device time (CUDA graph replays),
+     the plain version's call time (CUDA events) and device time by kernel
+     (torch.profiler), and the bound (its flops at the float64 peak, or the
+     live triangle's bytes);
 Every replay below runs on CUDA graphs: the solver first runs precompile
 (its step, superstep and bundle signatures at 3500 poses) and the ladder
 of its batch epoch's expansion or dense fallback, and after the replay each
@@ -30,7 +37,8 @@ must be equal: one replay per dispatch, none eager.
      step by step, held against the JAX package's golden
      (aprilsam_tpu_torch/golden/): per-step chi2, path and the
      fast/full/batch census; the tri_inv launch count of that run, and the
-     sum of its counts by shape, equal its full-path dispatches; after
+     sum of its counts by shape, equal its full-path dispatches, and K2's
+     its fast and full dispatches (its live columns beside them); after
      step CHECKPOINT_AT it saves the solver (checkpoint.save_solver);
   6. the throughput replays of the same graph, float64, in deferred mode
      at superstep_size=96 with the bench's union buckets, held against the
@@ -179,7 +187,9 @@ must be equal: one replay per dispatch, none eager.
      line (paths bench-<cell>);
  21. one JSON line listing every ported kernel, with K1's launches on each
      path and by shape, and their launch-weighted kernel and library
-     times; the card's line; and the result line
+     times, and K2's launches on the main path by shape with their
+     launch-weighted kernel and cuSOLVER (plain) device times: the split of
+     the QR's time by bucket; the card's line; and the result line
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -294,6 +304,17 @@ SHAPES += [(B, 384, torch.float64) for B in (1, 2, 4, 8, 16)]
 SHAPES += [(B, 768, dtype) for B in (16, 128)
            for dtype in (torch.float64, torch.float32)]
 
+# K2: (M, live nodes, xyt factors, position factors, K) per shape: the
+# per-step buckets at the mean live front of an M3500 per-step pass (2, 45,
+# 126, 303 nodes; 1-4 factors), the largest at M = 256 and at M = 1024,
+# then the streaming cell's superstep signatures (S = 64: K = 128, a few
+# hundred live rows) and S = 96's (K = 192)
+FRONTAL_SHAPES = [(16, 2, 1, 0, 16), (64, 45, 2, 0, 16),
+                  (256, 126, 3, 0, 16), (256, 247, 4, 0, 16),
+                  (1024, 303, 4, 0, 16), (1024, 350, 4, 0, 16),
+                  (256, 200, 64, 4, 128), (384, 300, 100, 8, 128),
+                  (1024, 700, 128, 8, 128), (384, 300, 150, 4, 192)]
+
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
@@ -358,7 +379,7 @@ def ptxas_figures(log: str) -> list:
         if m:
             # _ZN..strip_kernelIdLi48ELb0E..: strip_kernel<double, 48, false>
             name, spills = m.group(1), None
-            k = re.search(r"([a-z]+_kernel)I([df])E?(?:Li(\d+)ELb([01]))?",
+            k = re.search(r"([a-z_]+_kernel)I([df])E?(?:Li(\d+)ELb([01]))?",
                           name)
             if k:
                 args = ["double" if k.group(2) == "d" else "float"]
@@ -440,6 +461,102 @@ def check_tri_inv(K, peaks) -> dict:
     return rows
 
 
+def frontal_bound_ms(m: int, p: int, n: int, dtype, peaks) -> tuple:
+    """Least time for the live frontal update of m slots under p live rows
+    (the kernel's useful work): reflector k updates the 3m - k - 1 later
+    columns and the right-hand side, a dot product and an update of p + 1
+    entries each, 4 (p + 1) flops, against the live triangle of R read and
+    written once and A's live rows read once."""
+    nl = 3 * m
+    elt = torch.finfo(dtype).bits // 8
+    flops = 4 * (p + 1) * nl * (nl + 1) // 2
+    nbytes = (nl * (nl + 1) + p * (nl + 1)) * elt
+    t_ops = flops / peaks["float64"] * 1e3
+    t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of fn: `reps` calls captured in one CUDA graph,
+    replayed twice between CUDA events, best of three."""
+    from aprilsam_tpu_torch.kernels import frontal_qr as K2
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        K2.capture_record = {}
+        try:
+            with torch.cuda.graph(g, stream=s):
+                for _ in range(reps):
+                    fn()
+        finally:
+            K2.capture_record = None
+    torch.cuda.synchronize()
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        g.replay()
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / (2 * reps))
+    return best
+
+
+def measure_frontal_qr(K2, peaks, shape: tuple, dtype) -> dict:
+    """K2 at one shape: checked against its plain version, then its device
+    time beside the plain version's (the cuSOLVER QR the main path ran
+    before) and the bound."""
+    M, nodes, nx, npos, Kf = shape
+    R, y, A, rhs, ctl = K2.example(M, nodes, nx, npos, Kf, seed=M + nodes,
+                                   dtype=dtype, device="cuda")
+    ref_R, ref_y = K2.frontal_qr_plain(R, y, A, rhs)
+    got_R, got_y = K2.frontal_qr(R.clone(), y.clone(), A, rhs, ctl)
+    torch.cuda.synchronize()
+    rel_err = max(((got_R - ref_R).abs().max() / ref_R.abs().max()).item(),
+                  ((got_y - ref_y).abs().max() / ref_y.abs().max()).item())
+    if not (torch.isfinite(got_R).all() and rel_err <= TOL[dtype]):
+        raise AssertionError(f"frontal_qr {shape} {dtype}: max relative "
+                             f"error {rel_err} > {TOL[dtype]}")
+    # in place: each timed call updates the last one's triangle by the same
+    # rows, the same work
+    Rk, yk = got_R, got_y
+    kernel_ms = graph_ms(lambda: K2.frontal_qr(Rk, yk, A, rhs, ctl))
+    plain = lambda: K2.frontal_qr_plain(R, y, A, rhs)
+    plain_dev = device_us(plain, iters=5)
+    bound_ms, bound_by = frontal_bound_ms(nodes, 3 * (nx + npos), 3 * M,
+                                          dtype, peaks)
+    row = {"kernel": "frontal_qr", "shape": [3 * M, 6 * Kf],
+           "live": {"nodes": nodes, "xyt": nx, "pos": npos},
+           "dtype": str(dtype).replace("torch.", ""), "max_rel_err": rel_err,
+           "tol_rel": TOL[dtype], "kernel_ms": kernel_ms,
+           "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+           "plain_device_ms": sum(plain_dev.values()) / 1e3,
+           "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+           "bound_share": bound_ms / kernel_ms,
+           "plain_device_us": plain_dev}
+    row["plain_over_kernel"] = row["plain_device_ms"] / kernel_ms
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def check_frontal_qr(K2, peaks) -> dict:
+    """Phase 3b.  Returns the float64 rows keyed (3M, p, dtype name), as
+    K2.launches_by_shape keys them (the first shape of each key)."""
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        for shape in FRONTAL_SHAPES:
+            row = measure_frontal_qr(K2, peaks, shape, dtype)
+            rows.setdefault((*row["shape"], row["dtype"]), row)
+    return rows
+
+
 def run_tutorial() -> None:
     """Phase 4 (tests/test_incremental.py's tutorial dogleg)."""
     from aprilsam_tpu_torch.geometry import np_xyt_inv_mul
@@ -486,6 +603,7 @@ def check_replay(K, name: str, card: str, rep, res, secs: float,
     tri_inv launched once per full-path dispatch.  Returns the launches by
     (B, N, dtype name)."""
     from aprilsam_tpu_torch.bench import hold_per_step
+    from aprilsam_tpu_torch.kernels import frontal_qr as K2
 
     gold_paths, gold_chi2 = read_golden()
     n = len(gold_paths)
@@ -499,6 +617,8 @@ def check_replay(K, name: str, card: str, rep, res, secs: float,
                          gold_chi2[first:], gold_paths[first:])
     bad = held.pop("bad")
     full_dispatches = rep.solver.counters["full"]
+    frontal = dict(K2.launches_by_shape)
+    frontal_dispatches = rep.solver.counters["fast"] + full_dispatches
     steps = n - first
     summary = {
         "phase": name, "graph": f"manhattan_world({n}, seed=0)",
@@ -509,10 +629,21 @@ def check_replay(K, name: str, card: str, rep, res, secs: float,
         "tri_inv_launches_by_shape": [
             {"shape": [B, N, N], "dtype": dt, "launches": c}
             for (B, N, dt), c in sorted(by_shape.items())],
+        "frontal_dispatches": frontal_dispatches,
+        "frontal_qr_launches": K2.launches,
+        "frontal_live_columns": rep.solver.counters["frontal_live_columns"],
+        "frontal_qr_launches_by_shape": [
+            {"shape": [n3, p], "dtype": dt, "launches": c}
+            for (n3, p, dt), c in sorted(frontal.items())],
     }
     print(json.dumps(summary), flush=True)
     if bad:
         raise AssertionError(f"{name}: " + "; ".join(bad))
+    if K2.launches != frontal_dispatches or \
+            sum(frontal.values()) != K2.launches:
+        raise AssertionError(
+            f"{name}: frontal_qr launched {K2.launches} times ({frontal}) "
+            f"for {frontal_dispatches} frontal dispatches")
     if launches != full_dispatches or launches < held["census"]["full"] \
             or launches == 0:
         raise AssertionError(
@@ -562,6 +693,7 @@ def run_main_path(K, card: str, ckpt_path: str) -> tuple:
     what phase 11 resumes from."""
     from aprilsam_tpu_torch.checkpoint import save_solver
     from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.kernels import frontal_qr as K2
     from aprilsam_tpu_torch.replay import Replay
     from aprilsam_tpu_torch.solver import SolverConfig
 
@@ -572,6 +704,7 @@ def run_main_path(K, card: str, ckpt_path: str) -> tuple:
         raise AssertionError("the main path runs in float64")
     prepared = prepare_graphs(rep.solver, n)
     K.reset_launches()
+    K2.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = []
@@ -597,6 +730,7 @@ def run_checkpoint_resume(K, card: str, ckpt_path: str, ckpt: dict) -> dict:
     golden as phase 5 is.  Returns the tri_inv launches by shape."""
     from aprilsam_tpu_torch.checkpoint import load_solver
     from aprilsam_tpu_torch.datasets import manhattan_world
+    from aprilsam_tpu_torch.kernels import frontal_qr as K2
     from aprilsam_tpu_torch.replay import Replay
     from aprilsam_tpu_torch.solver import SolverConfig
 
@@ -611,6 +745,7 @@ def run_checkpoint_resume(K, card: str, ckpt_path: str, ckpt: dict) -> dict:
     rep.graph, rep.event_idx = ckpt["graph"], ckpt["event_idx"]
     prepared = prepare_graphs(rep.solver, n)
     K.reset_launches()
+    K2.reset_launches()
     t0 = time.perf_counter()
     res = [rep.step() for _ in range(n - ckpt["event_idx"])]
     rep.finish()
@@ -1930,6 +2065,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from aprilsam_tpu_torch import native
+    from aprilsam_tpu_torch.kernels import frontal_qr as K2
     from aprilsam_tpu_torch.kernels import tri_inv as K
     from aprilsam_tpu_torch.utils.card import card_line, card_peaks
     from aprilsam_tpu_torch.utils import setup_precision
@@ -1949,25 +2085,30 @@ def main() -> int:
         fn()
         return time.perf_counter() - t
 
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         f_kernel = ex.submit(timed, K.build)
+        f_k2 = ex.submit(timed, K2.build)
         f_native = ex.submit(timed, native.build)
         build_s = {"tri_inv.cu (nvcc sm_90a)": f_kernel.result(),
+                   "frontal_qr.cu (nvcc sm_90a)": f_k2.result(),
                    "sam_native.c (cc)": f_native.result()}
     print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
-    with open(K.build() + ".log") as f:
-        for fig in ptxas_figures(f.read()):
-            print(json.dumps({"phase": "ptxas", **fig}), flush=True)
+    for lib in (K, K2):
+        with open(lib.build() + ".log") as f:
+            for fig in ptxas_figures(f.read()):
+                print(json.dumps({"phase": "ptxas", **fig}), flush=True)
 
-    # 3. the kernel against its plain version
+    # 3. the kernels against their plain versions
     rows = check_tri_inv(K, peaks)
     main_row = rows[(32, 384, "float64")]
+    k2_rows = check_frontal_qr(K2, peaks)
 
     # 4-5. the tutorial, then the main path (which saves a checkpoint)
     run_tutorial()
     tmp = tempfile.TemporaryDirectory()
     ckpt_path = os.path.join(tmp.name, "solver.npz")
     by_shape, ckpt = run_main_path(K, smi, ckpt_path)
+    k2_main = dict(K2.launches_by_shape)
     paths = {"per-step": by_shape}
 
     # 6-7. the throughput replays, then the CLI with --graphpath
@@ -2053,6 +2194,14 @@ def main() -> int:
                                   for r in shapes)}
 
     by_path = {name: weighted(counts) for name, counts in paths.items()}
+    # K2 on the main path by shape: its device time and cuSOLVER's (the
+    # plain version's kernels) at the shape's row of phase 3b
+    k2_shapes = [{
+        "shape": [n3, p], "dtype": dt, "launches": c,
+        "ms": k2_rows[(n3, p, dt)]["kernel_ms"],
+        "plain_device_ms": k2_rows[(n3, p, dt)]["plain_device_ms"]}
+        for (n3, p, dt), c in sorted(k2_main.items()) if (n3, p, dt) in k2_rows]
+    k2_main_row = k2_rows[(768, 96, "float64")]
     print(json.dumps({"kernels": [{
         "name": "tri_inv", "route": "cuda",
         "source": "aprilsam_tpu_torch/csrc/tri_inv.cu",
@@ -2065,7 +2214,23 @@ def main() -> int:
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_us"] / 1e3,
         "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}), flush=True)
+        "library_ms": main_row["library_ms"]}, {
+        "name": "frontal_qr", "route": "cuda",
+        "source": "aprilsam_tpu_torch/csrc/frontal_qr.cu",
+        "replaces": K2.REPLACES,
+        "launches_main_path": sum(k2_main.values()),
+        "main_path_by_shape": k2_shapes,
+        "main_path_kernel_ms": sum(r["launches"] * r["ms"]
+                                   for r in k2_shapes),
+        "main_path_plain_device_ms": sum(r["launches"] * r["plain_device_ms"]
+                                         for r in k2_shapes),
+        "max_rel_err": k2_main_row["max_rel_err"],
+        "shape": k2_main_row["shape"], "live": k2_main_row["live"],
+        "dtype": k2_main_row["dtype"], "ms": k2_main_row["kernel_ms"],
+        "plain_ms": k2_main_row["plain_ms"],
+        "plain_device_ms": k2_main_row["plain_device_ms"],
+        "bound_ms": k2_main_row["bound_us"] / 1e3,
+        "bound_by": k2_main_row["bound_by"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -49,6 +49,7 @@ def test_port_has_the_slice_modules():
               "solver.symbolic", "factors",
               "kernels.linalg3", "solver.state", "solver.ingest",
               "solver.batch", "solver.host_batch", "kernels.tri_inv",
+              "kernels.frontal_qr",
               "kernels.assembly", "solver.panel_epoch",
               "kernels.sweep", "solver.incremental", "replay", "cli",
               "checkpoint", "parallel", "parallel.dist", "parallel.pchol",
@@ -57,7 +58,8 @@ def test_port_has_the_slice_modules():
               "large_inc", "scaling", "scaling_model", "schur_stages",
               "utils.card", "multicard", "bench", "utils.trace"):
         assert f"aprilsam_tpu_torch.{m}" in mods, m
-    assert os.path.exists(os.path.join(PKG, "csrc", "tri_inv.cu"))
+    for src in ("tri_inv.cu", "frontal_qr.cu"):
+        assert os.path.exists(os.path.join(PKG, "csrc", src))
 
 
 def test_no_jax_at_runtime():

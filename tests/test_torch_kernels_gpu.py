@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, and the device
-batch epochs (which run K1) against the host epoch, on the card.
+batch epochs (which run K1) against the host epoch, on the card; K2 (the
+frontal QR update) also under CUDA graphs, and the per-step replay's
+device operations, which launch no cuSOLVER QR.
 
 Needs an NVIDIA card and nvcc; every test here carries the `gpu` marker and
 skips without a card.  The file imports neither JAX nor the JAX package, so
@@ -14,8 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from aprilsam_tpu_torch.datasets import manhattan_world
+from aprilsam_tpu_torch.kernels import frontal_qr as K2
 from aprilsam_tpu_torch.kernels import tri_inv as K
 from aprilsam_tpu_torch.kernels.sweep import panel_backsub
+from aprilsam_tpu_torch.replay import Replay
+from aprilsam_tpu_torch.solver import SolverConfig
 
 
 def _need_card():
@@ -170,3 +176,135 @@ def test_device_epochs_on_the_card_match_the_host_epoch(backend, k1):
                                    atol=tol, err_msg=name)
     np.testing.assert_allclose(ds.state[:700].cpu().numpy(),
                                ds_h.state[:700].numpy(), rtol=0, atol=1e-8)
+
+
+# (M, live nodes, xyt factors, position factors, K): the per-step buckets at
+# the live fronts of an M3500 per-step pass (mean, and the largest at
+# M = 256), position rows live, and superstep shapes (more than 12 live rows:
+# several sweeps; M = 1024: a cluster of four blocks)
+K2_SHAPES = [(16, 2, 1, 0, 16), (64, 45, 2, 0, 16), (256, 126, 3, 0, 16),
+             (256, 247, 4, 0, 16), (1024, 350, 4, 0, 16),
+             (256, 126, 2, 2, 16), (1024, 1000, 4, 2, 16),
+             (384, 200, 60, 10, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("M,nodes,nx,npos,Kf", K2_SHAPES)
+def test_frontal_qr_kernel_matches_plain_version(M, nodes, nx, npos, Kf,
+                                                 dtype, tol):
+    _need_card()
+    R, y, A, rhs, ctl = K2.example(M, nodes, nx, npos, Kf, seed=M + nodes,
+                                   dtype=dtype, device="cuda")
+    ref_R, ref_y = K2.frontal_qr_plain(R, y, A, rhs)
+    before = K2.launches
+    key = (3 * M, 6 * Kf, str(dtype).replace("torch.", ""))
+    before_shape = K2.launches_by_shape.get(key, 0)
+    R0 = R.clone()
+    got_R, got_y = K2.frontal_qr(R, y, A, rhs, ctl)
+    torch.cuda.synchronize()
+    assert got_R.data_ptr() == R.data_ptr()            # in place
+    assert K2.launches == before + 1
+    assert K2.launches_by_shape[key] == before_shape + 1
+    for got, ref in ((got_R, ref_R), (got_y, ref_y)):
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err <= tol
+    nl = 3 * nodes
+    assert torch.equal(got_R[nl:, nl:], R0[nl:, nl:])  # dead slots left
+    assert torch.tril(got_R, -1).abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_frontal_qr_kernel_special_cases():
+    """A new node's zero row, a first touched column past 0 with a negative
+    leading diagonal, a singular column and a dead plan, on the card
+    against the plain version (the CPU tests hold the same cases to the
+    restatement)."""
+    _need_card()
+    cases = [dict(zero_rows=(44,)), dict(first=20, neg_diag=(4,)),
+             dict(zero_rows=(30,))]
+    for i, kw in enumerate(cases):
+        R, y, A, rhs, ctl = K2.example(64, 45, 3, 1, seed=11 + i,
+                                       device="cuda", **kw)
+        if i == 2:
+            R[:, 90:93] = 0.0
+            A[:, 90:93] = 0.0
+        ref_R, ref_y = K2.frontal_qr_plain(R, y, A, rhs)
+        got_R, got_y = K2.frontal_qr(R.clone(), y.clone(), A, rhs, ctl)
+        torch.cuda.synchronize()
+        for got, ref in ((got_R, ref_R), (got_y, ref_y)):
+            assert ((got - ref).abs().max()
+                    / ref.abs().max()).item() <= 1e-10, kw
+        if i == 2:
+            assert torch.equal(torch.diagonal(got_R)[90:93],
+                               torch.zeros(3, dtype=R.dtype, device="cuda"))
+    R, y, A, rhs, ctl = K2.example(16, 2, 1, 0, device="cuda")
+    R0, y0 = R.clone(), y.clone()
+    K2.frontal_qr(R, y, A, rhs, torch.zeros_like(ctl))
+    torch.cuda.synchronize()
+    assert torch.equal(R, R0) and torch.equal(y, y0)
+
+
+@pytest.mark.gpu
+def test_frontal_qr_rejects_what_it_does_not_take():
+    _need_card()
+    R, y, A, rhs, ctl = K2.example(16, 2, 1, 0, device="cuda")
+    with pytest.raises(TypeError):
+        K2.frontal_qr(R, y.float(), A, rhs, ctl)
+    with pytest.raises(ValueError):
+        K2.frontal_qr(R.t(), y, A, rhs, ctl)
+    with pytest.raises(ValueError):
+        K2.frontal_qr(R, y, A[:5], rhs[:5], ctl)
+    with pytest.raises(ValueError):
+        K2.frontal_qr(R, y, A, rhs, ctl.cpu())
+
+
+def _per_step_replay(poses, graphs=True):
+    cfg = SolverConfig(wallclock_gate=False)
+    rep = Replay(manhattan_world(poses, seed=0), cfg, device="cuda")
+    rep.solver.graphs.enabled = graphs
+    return rep
+
+
+@pytest.mark.gpu
+def test_frontal_qr_under_graphs_counts_each_replay():
+    """A per-step replay on CUDA graphs: one K2 launch per frontal
+    dispatch (fast and full steps), each replay adding its capture's
+    record, as the eager replay counts them; the same chi2 as eager."""
+    _need_card()
+    out = {}
+    for graphs in (False, True):
+        rep = _per_step_replay(400, graphs)
+        K2.reset_launches()
+        rep.run()
+        torch.cuda.synchronize()
+        s = rep.solver
+        out[graphs] = (s.chi2_history(), K2.launches,
+                       dict(K2.launches_by_shape), s)
+    h_e, n_e, by_e, s_e = out[False]
+    h_g, n_g, by_g, s_g = out[True]
+    dispatches = s_g.counters["fast"] + s_g.counters["full"]
+    assert n_g == n_e == dispatches > 0
+    assert by_g == by_e
+    assert sum(by_g.values()) == n_g
+    assert s_g.graphs.replayed["fast"] > 0
+    assert np.all(np.abs(h_g - h_e) <= 1e-9 * np.abs(h_e) + 1e-12)
+    assert s_g.counters["frontal_live_columns"] == \
+        s_e.counters["frontal_live_columns"] > 0
+
+
+@pytest.mark.gpu
+def test_per_step_signatures_launch_no_cusolver_qr():
+    """The device operations of a per-step replay (every signature it
+    dispatches, eager and replayed): K2's kernel and no geqrf / orgqr."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    rep = _per_step_replay(400)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rep.run()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    assert any("frontal_qr_kernel" in n for n in names)
+    qr = [n for n in names if "geqr" in n or "orgqr" in n or "ormqr" in n]
+    assert qr == []

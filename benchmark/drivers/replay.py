@@ -32,10 +32,16 @@ import torch
 from aprilsam_tpu_torch.graph import FactorGraph
 from aprilsam_tpu_torch.kernels import tri_inv
 from aprilsam_tpu_torch.replay import Replay
-from aprilsam_tpu_torch.solver import SolverConfig
+from aprilsam_tpu_torch.solver import SolverConfig, host_batch, incremental
 from aprilsam_tpu_torch.solver.batch import precompile_device_batch
 from aprilsam_tpu_torch.solver.host_batch import precompile_expand
+from aprilsam_tpu_torch.solver.incremental import IncrementalSolver
 from aprilsam_tpu_torch.solver.panel_epoch import precompile_panel_epoch
+from aprilsam_tpu_torch.utils.cache import GraphCache
+
+
+# the faults (faults.py) that a replay can have
+FAULTS = ("unchanged", "altered", "half_edges")
 
 
 class _States:
@@ -121,6 +127,21 @@ class Driver:
         else:
             precompile_expand(ds, cfg, nnodes, graphs)
         sync(self.device)
+
+    def span_targets(self) -> list:
+        """The host spans of a traced pass (trace.Spans's targets): the
+        step, planning, the epochs, the graph cache's dispatches (a
+        capture where it captured) and the growths."""
+        return [
+            (Replay, "step", "step, other host work", None, None),
+            (incremental, "plan_step", "planning", None, None),
+            (host_batch, "host_batch_epoch", "host epoch", None, None),
+            (incremental, "run_batch_epoch", "device epoch", None, None),
+            (GraphCache, "run", "dispatch", "capture",
+             lambda a: a[0].captures),
+            (IncrementalSolver, "_maybe_grow_capacity", None, "growth",
+             lambda a: len(a[0].growths)),
+        ]
 
     def build(self, graph: dict) -> Replay:
         """A fresh solver for a pass over `graph`, prepared where the

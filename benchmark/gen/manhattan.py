@@ -26,6 +26,8 @@ hands to the program:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 TWOPI = 2.0 * np.pi
@@ -50,22 +52,15 @@ def _between(a, b):
     return np.array([ca * dx + sa * dy, -sa * dx + ca * dy, b[2] - a[2]])
 
 
-def generate(poses: int, closures: int, world: int, seed: int,
-             step_len: float = 1.0,
-              block: int = 10, odom_sigma_xy: float = 0.02,
-              odom_sigma_theta_deg: float = 0.5,
-              closure_sigma_xy: float = 0.05,
-              closure_sigma_theta_deg: float = 1.0,
-              closure_radius: float = 1.5,
-              max_closures_per_pose: int = 2) -> dict:
-    """The graph of `poses` poses and poses - 1 + `closures` edges of the
-    world `world` (a non-negative integer), measured with the noise of
-    `seed` (one, or a sequence of them).  Raises ValueError when the world
-    offers fewer candidate closures than asked for."""
+@functools.lru_cache(maxsize=2)
+def _world(poses: int, closures: int, world: int, step_len: float,
+           block: int, closure_radius: float,
+           max_closures_per_pose: int) -> tuple:
+    """What a seed leaves alone: the true trajectory (read-only) and the
+    chosen closures, as a tuple of (j, i).  Kept for the last two worlds
+    asked for, since a run's passes share theirs (a 250 000-pose world
+    takes some ten seconds)."""
     wrng = np.random.default_rng(world)
-    rng = np.random.default_rng(seed)
-    sig_th = np.radians(odom_sigma_theta_deg)
-
     truth = np.zeros((poses, 3))
     heading = 0.0
     pos = np.zeros(2)
@@ -75,16 +70,6 @@ def generate(poses: int, closures: int, world: int, seed: int,
         pos = pos + step_len * np.array([np.cos(heading), np.sin(heading)])
         truth[i] = [pos[0], pos[1], heading]
     truth[:, 2] = mod2pi(truth[:, 2])
-
-    z_odom = np.zeros((poses - 1, 3))
-    init = np.zeros_like(truth)
-    for i in range(poses - 1):
-        z = _between(truth[i], truth[i + 1])
-        z[:2] += odom_sigma_xy * rng.standard_normal(2)
-        z[2] = mod2pi(z[2] + sig_th * rng.standard_normal())
-        z_odom[i] = z
-        init[i + 1] = _compose(init[i], z)
-    init[:, 2] = mod2pi(init[:, 2])
 
     # the candidate pool, pose by pose (the generator's grid of cells)
     grid: dict = {}
@@ -110,13 +95,42 @@ def generate(poses: int, closures: int, world: int, seed: int,
     if len(pool) < closures:
         short = closures - len(pool)
         if len(spare) < short:
-            raise ValueError(f"seed {seed}: {len(pool) + len(spare)} "
+            raise ValueError(f"world {world}: {len(pool) + len(spare)} "
                              f"candidate closures, fewer than the "
                              f"{closures} asked for")
         fill = wrng.choice(len(spare), size=short, replace=False)
         pool = sorted(pool + [spare[k] for k in fill], key=lambda e: e[1])
     pick = np.sort(wrng.choice(len(pool), size=closures, replace=False))
-    chosen = [pool[k] for k in pick]
+    truth.setflags(write=False)
+    return truth, tuple(pool[k] for k in pick)
+
+
+def generate(poses: int, closures: int, world: int, seed: int,
+             step_len: float = 1.0,
+              block: int = 10, odom_sigma_xy: float = 0.02,
+              odom_sigma_theta_deg: float = 0.5,
+              closure_sigma_xy: float = 0.05,
+              closure_sigma_theta_deg: float = 1.0,
+              closure_radius: float = 1.5,
+              max_closures_per_pose: int = 2) -> dict:
+    """The graph of `poses` poses and poses - 1 + `closures` edges of the
+    world `world` (a non-negative integer), measured with the noise of
+    `seed` (one, or a sequence of them).  Raises ValueError when the world
+    offers fewer candidate closures than asked for."""
+    truth, chosen = _world(poses, closures, world, step_len, block,
+                           closure_radius, max_closures_per_pose)
+    rng = np.random.default_rng(seed)
+    sig_th = np.radians(odom_sigma_theta_deg)
+
+    z_odom = np.zeros((poses - 1, 3))
+    init = np.zeros_like(truth)
+    for i in range(poses - 1):
+        z = _between(truth[i], truth[i + 1])
+        z[:2] += odom_sigma_xy * rng.standard_normal(2)
+        z[2] = mod2pi(z[2] + sig_th * rng.standard_normal())
+        z_odom[i] = z
+        init[i + 1] = _compose(init[i], z)
+    init[:, 2] = mod2pi(init[:, 2])
 
     W_odom = np.diag([odom_sigma_xy ** -2, odom_sigma_xy ** -2,
                       sig_th ** -2])
@@ -140,4 +154,5 @@ def generate(poses: int, closures: int, world: int, seed: int,
             a[e], b[e], z[e], W[e] = j, i, zc, W_cl
             e += 1
             c += 1
-    return {"truth": truth, "init": init, "a": a, "b": b, "z": z, "W": W}
+    return {"truth": truth.copy(), "init": init, "a": a, "b": b, "z": z,
+            "W": W}

@@ -18,6 +18,30 @@ arrays and the configuration's prior, and nothing that the program made:
 
 Everything is float64: chi2 in numpy on the host, the optimum in torch on
 the device it is given (dense Cholesky; 30 000 unknowns take 7.2 GB).
+
+The check's numbers on this reference (check.py: each the largest over
+the run's answers, `nonfinite` counted), for every answer of `step` k
+whose states are finite:
+
+  chi2_rel   |chi2 the program returned - the reference's chi2 of the
+             states the program returned| / the latter (at least FLOOR:
+             before the first loop closes, the odometry chain is met
+             exactly and chi2 is rounding, 1e-28, which no relative
+             comparison can judge): whether the returned chi2 belongs to
+             the returned states at the precision the configuration
+             states;
+  end_gap    at each pass's end, how far the reference's chi2 of the
+             returned states of every pose lies above the optimum of the
+             whole graph (the reference's Gauss-Newton from the true
+             poses), over the optimum: whether the states are the solve's
+             answer.  The incremental solver stops short of the optimum
+             (it relinearizes a pose only past the configuration's
+             thresholds), so sound runs read above 0; a solve whose
+             updates are dropped or wrong reads far above.  Mid-pass the
+             answer can lie well above the optimum for a while after a
+             loop closes (sound runs read up to 2.3 times at a checked
+             step), so the optimum is compared at pass ends alone;
+  nonfinite  answers with a state or chi2 that is not a finite number.
 """
 
 from __future__ import annotations
@@ -28,6 +52,8 @@ import torch
 TWOPI = 2.0 * np.pi
 TOL = 1e-8
 MAX_ITERS = 12
+NUMBERS = ("chi2_rel", "end_gap", "nonfinite")
+FLOOR = 1.0
 
 
 def wrap(v):
@@ -129,3 +155,23 @@ def optimum(x0, a, b, z, W, prior, device="cpu"):
             return xs, chi2(xs, a, b, z, W, prior), it
     raise RuntimeError(f"Gauss-Newton did not converge in {MAX_ITERS} "
                        f"iterations (last step {float(step.abs().max())!r})")
+
+
+
+def chi2_rel(graph: dict, prior: dict, ans: dict, x) -> tuple:
+    """(the chi2_rel of an answer with finite states x, the reference's
+    chi2 of x)."""
+    ref = chi2(x, *edges_upto(graph, ans["step"]), prior)
+    return abs(ans["chi2"] - ref) / max(ref, FLOOR), ref
+
+
+def numbers(graph: dict, prior: dict, ans: dict, x, device="cpu") -> dict:
+    """This reference's numbers of one answer with finite states x."""
+    k = ans["step"]
+    out = {}
+    out["chi2_rel"], ref = chi2_rel(graph, prior, ans, x)
+    if ans.get("end"):
+        opt = optimum(graph["truth"][:k + 1], *edges_upto(graph, k), prior,
+                      device)[1]
+        out["end_gap"] = (ref - opt) / max(opt, FLOOR)
+    return out

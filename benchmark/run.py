@@ -14,7 +14,9 @@ cell is made of is found by name:
   benchmark/workloads/W.json     a cell: its configuration, its traffic
                                  (driver, arrivals, warm-up) and the
                                  check's sampling and limits;
-  benchmark/drivers/D.py         a driver (class Driver: build, run_pass);
+  benchmark/drivers/D.py         a driver (class Driver: build, run_pass,
+                                 span_targets; GROUP where it runs on a
+                                 process group even on one card);
   benchmark/gen/G.py             a generator of inputs from the seed;
   benchmark/end_to_end/M.py      an end-to-end metric (read(run));
   benchmark/layer_metrics/M.py   a per-layer metric (read(records)), which
@@ -24,7 +26,11 @@ A run: the first pass's graph from --seed, the driver's set-up (a
 throwaway warm-up where the cell asks for one), then whole passes
 back to back until their timed seconds reach --seconds (the last pass
 completes), each on a graph of its own (pass_graph).  Set-up is
-everything from the process's start to the first pass's clock.  With
+everything from the process's start to the first pass's clock.  A cell
+of N > 1 chips runs as N ranks, one process and one card each
+(ranks.py): this process is rank 0 and starts the others, every rank
+runs the same passes, a pass's seconds are the slowest rank's, and only
+rank 0 prints and runs the check.  With
 --trace 1 the first pass runs under torch.profiler with host spans around
 the program's layers, and the run reports the per-layer metrics; with
 --trace 0 the end-to-end ones.  After the window the program's state is
@@ -33,8 +39,9 @@ freed and the plain reference judges every answer the run read
 lines of standard error each number compared, beside its limit.
 
 Exits 3 without a result when the machine has no card or fewer than the
-cell asks for, and 4 when JAX or the JAX package is loaded in the process
-after the window.
+cell asks for, 4 when JAX or the JAX package is loaded in a rank's
+process after the window, and 5 (ranks.RANK_FAILED) or 1 when a rank
+fails.
 """
 
 import time
@@ -146,29 +153,18 @@ def host_line() -> str:
             f" usable; {clocks}; load {' '.join(f'{v:.2f}' for v in load)}")
 
 
-def traced_pass(driver, rep, checked) -> tuple:
+def traced_pass(driver, rep, checked, world) -> tuple:
     """One pass under torch.profiler (device activity) with host spans
-    around the program's layers.  Returns the pass and its records."""
+    around the program's layers (the driver's span_targets).  Returns the
+    pass and its records.  The traced window is the world's: from the
+    first rank's start to the last rank's finish, on the host's monotonic
+    clock, which every rank of the machine shares; each rank's busy time
+    is read inside it."""
     import torch
 
-    from aprilsam_tpu_torch.replay import Replay
-    from aprilsam_tpu_torch.solver import host_batch, incremental
-    from aprilsam_tpu_torch.solver.incremental import IncrementalSolver
-    from aprilsam_tpu_torch.utils.cache import GraphCache
-
-    targets = [
-        (Replay, "step", "step, other host work", None, None),
-        (incremental, "plan_step", "planning", None, None),
-        (host_batch, "host_batch_epoch", "host epoch", None, None),
-        (incremental, "run_batch_epoch", "device epoch", None, None),
-        (GraphCache, "run", "dispatch", "capture",
-         lambda a: a[0].captures),
-        (IncrementalSolver, "_maybe_grow_capacity", None, "growth",
-         lambda a: len(a[0].growths)),
-    ]
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
-    with trace.Spans(targets) as spans, prof:
+    with trace.Spans(driver.span_targets()) as spans, prof:
         torch.cuda.synchronize()
         mark = time.perf_counter_ns()
         torch.cuda._sleep(1000)
@@ -176,6 +172,8 @@ def traced_pass(driver, rep, checked) -> tuple:
         w0 = time.perf_counter_ns()
         res = driver.run_pass(rep, checked)
         w1 = time.perf_counter_ns()
+    ends = world.gather((w0, w1))
+    w0, w1 = min(e[0] for e in ends), max(e[1] for e in ends)
     names, starts, durs = trace.device_records(prof)
     offset = trace.clock_offset(names, starts, mark)
     keep = np.asarray([trace.MARKER not in n for n in names], dtype=bool)
@@ -194,9 +192,11 @@ def traced_pass(driver, rep, checked) -> tuple:
     rec = {"poses": res["poses"], "pass_s": res["seconds"],
            "window_s": (w1 - w0) / 1e9, "busy_s": busy / 1e9,
            "spans": {k: list(v) for k, v in spans.totals.items()},
-           "counters": res["counters"], "growths": res["growths"],
-           "captures": res["captures"], "capture_s": res["capture_s"],
-           "k1_launches": res["k1_launches"],
+           "counters": res.get("counters", {}),
+           "growths": res.get("growths", []),
+           "captures": res.get("captures", 0),
+           "capture_s": res.get("capture_s", 0.0),
+           "k1_launches": res.get("k1_launches", []),
            "k1_device_s": float(np.sum(durs[k1])) / 1e9,
            "device_kind": torch.cuda.get_device_name(0),
            "device_ops": trace.by_name(names, durs), "idle_gaps": idle}
@@ -223,29 +223,60 @@ def pass_graph(config: dict, seed: int, j: int, pool: dict = None) -> dict:
                         **params)
 
 
-def run_cell(args, spec: dict, device: str = "cuda") -> dict:
+def run_cell(args, spec: dict, device: str = "cuda", world=None) -> dict:
     """The run: set-up, the window, and the check.  Returns the result
-    line's parts; `device` "cpu" is the tests' (no trace there)."""
+    line's parts on rank 0 (None on the others); `device` "cpu" is the
+    tests' (no trace there).  `world` is this process's place in the
+    cell's world (ranks.py), None on rank 0, which launches it."""
+    from . import ranks
+
+    wl = spec["workload"]
+    drivers = load_file("drivers", wl["driver"])
+    if world is None:
+        world = ranks.World.launch(
+            spec["cell"]["chips"], device, getattr(drivers, "GROUP", False),
+            run_rank, {"args": vars(args), "spec": spec, "device": device},
+            wl.get("collective_timeout_s"))
+    try:
+        return _run(args, spec, drivers, world)
+    except BaseException:
+        world.abort()
+        raise
+
+
+def run_rank(world, args: dict, spec: dict, device: str) -> None:
+    """run_cell on rank 1..N-1 of a world that rank 0 launched."""
+    run_cell(argparse.Namespace(**args), spec, device, world)
+
+
+def _run(args, spec: dict, drivers, world) -> dict:
     import torch
 
     config, wl = spec["config"], spec["workload"]
     pool = wl.get("noise_pool")
     graphs = [pass_graph(config, args.seed, 0, pool)]
-    drivers = load_file("drivers", wl["driver"])
-    driver = drivers.Driver(config, wl, device, graphs[0])
+    world.join()
+    driver = drivers.Driver(config, wl, world.device, graphs[0])
     steps = checked_steps(args.seed, len(graphs[0]["truth"]),
                           wl["check"]["steps_per_pass"])
     rep = driver.build(graphs[0])
+    world.barrier()
     setup_s = time.perf_counter() - T0
     passes, between, rec = [], [], None
     window = 0.0
     while True:
         if args.trace and not passes:
-            res, rec = traced_pass(driver, rep, steps)
+            res, rec = traced_pass(driver, rep, steps, world)
         else:
             res = driver.run_pass(rep, steps)
         del rep
         drivers.collect(driver.device)
+        res["seconds"] = world.slowest(res["seconds"])
+        for a in res["answers"]:
+            if "digest" in a:
+                a["digests"] = world.gather(a.pop("digest"))
+            if world.rank:
+                a["states"] = None
         passes.append(res)
         window += res["seconds"]
         if window >= args.seconds:
@@ -254,20 +285,36 @@ def run_cell(args, spec: dict, device: str = "cuda") -> dict:
         graphs.append(pass_graph(config, args.seed, len(passes), pool))
         rep = driver.build(graphs[-1])
         between.append(time.perf_counter() - t)
+        world.barrier()
     if rec is not None:
-        rec["untraced_step_s"] = [p["step_s"] for p in passes[1:]]
+        rec["untraced_step_s"] = [p.get("step_s") for p in passes[1:]]
     cuda = driver.device.type == "cuda"
-    peak =torch.cuda.max_memory_allocated(driver.device) if cuda else 0
+    peak = torch.cuda.max_memory_allocated(driver.device) if cuda else 0
     found = forbidden_modules()
     answers = [dict(a, graph=j) for j, p in enumerate(passes)
                for a in p.pop("answers")]
     del driver
-    drivers.collect(torch.device(device))
-    verdict = judge(graphs, config["prior"], answers,
-                    wl["check"]["limits"], device)
-    return {"setup_s": setup_s, "passes": passes, "between_s": between,
-            "records": rec, "memory_peak_bytes": peak, "forbidden": found,
-            "verdict": verdict}
+    drivers.collect(world.device)
+    each = world.gather({"peak": peak, "forbidden": found,
+                         "busy_s": rec and rec["busy_s"]})
+    world.close()
+    if world.rank:
+        return None
+    out = {"setup_s": setup_s, "passes": passes, "between_s": between,
+           "records": rec, "memory_peak_bytes": peak, "forbidden": found,
+           "digests": [a["digests"] for a in answers if "digests" in a]}
+    if world.size > 1:
+        out["memory_peak_bytes"] = max(r["peak"] for r in each)
+        out["memory_peak_bytes_by_rank"] = [r["peak"] for r in each]
+        out["forbidden"] = sorted({m for r in each for m in r["forbidden"]})
+        if rec is not None:
+            # one window, the world's; each card's busy time in it
+            rec["busy_s_by_rank"] = [r["busy_s"] for r in each]
+            rec["busy_s"] = statistics.mean(rec["busy_s_by_rank"])
+    out["verdict"] = judge(graphs, config["prior"], answers,
+                           wl["check"]["limits"], world.device,
+                           wl["check"].get("reference", "posegraph"))
+    return out
 
 
 def metrics_of(spec: dict, run: dict, traced: bool) -> dict:
@@ -299,10 +346,15 @@ def result_line(spec: dict, run: dict, traced: bool, kind: str) -> dict:
             "device": {"platform": "gpu", "kind": kind,
                        "count": spec["cell"]["chips"],
                        "memory_peak_bytes": run["memory_peak_bytes"]}}
+    if "memory_peak_bytes_by_rank" in run:
+        line["device"]["memory_peak_bytes_by_rank"] = \
+            run["memory_peak_bytes_by_rank"]
     if traced:
         rec = run["records"]
         line["device"].update(busy_s=rec["busy_s"],
                               window_s=rec["window_s"])
+        if "busy_s_by_rank" in rec:
+            line["device"]["busy_s_by_rank"] = rec["busy_s_by_rank"]
         line["breakdown"] = {"device_ops": rec["device_ops"]}
         if rec["idle_gaps"] is not None:
             line["breakdown"]["idle_gaps"] = rec["idle_gaps"]
@@ -334,17 +386,28 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; host: {host_line()}", flush=True)
-    run = run_cell(args, spec)
+    return report(args, spec, run_cell(args, spec), card,
+                  torch.cuda.get_device_name(0))
+
+
+def report(args, spec: dict, run: dict, card: str, kind: str) -> int:
+    """Rank 0's output after a run: what the passes did, the answers
+    judged, with --trace 1 the traced pass's figures, and last the result
+    line; the numbers compared, beside their limits, last on standard
+    error.  Returns the exit code (4 where JAX was loaded)."""
     passes = run["passes"]
-    print(json.dumps({"passes_s": [p["seconds"] for p in passes],
-                      "between_passes_s": run["between_s"],
-                      "setup_s": run["setup_s"],
-                      "poses_per_pass": passes[0]["poses"],
-                      "counters": passes[-1]["counters"],
-                      "captures_in_passes": [p["captures"] for p in passes]}),
-          flush=True)
-    print(json.dumps({"answers": run["verdict"]["answers"],
-                      "end_gap": run["verdict"]["end_gap"]}), flush=True)
+    info = {"passes_s": [p["seconds"] for p in passes],
+            "between_passes_s": run["between_s"],
+            "setup_s": run["setup_s"],
+            "poses_per_pass": passes[0]["poses"],
+            "counters": passes[-1].get("counters"),
+            "captures_in_passes": [p.get("captures") for p in passes]}
+    if any("info" in p for p in passes):
+        info["pass_info"] = [p.get("info") for p in passes]
+    if "memory_peak_bytes_by_rank" in run:
+        info["memory_peak_bytes_by_rank"] = run["memory_peak_bytes_by_rank"]
+    print(json.dumps(info), flush=True)
+    print(json.dumps({"answers": run["verdict"]["answers"]}), flush=True)
     found = run["forbidden"] or forbidden_modules()
     if found:
         print(f"loaded in the run's process: {', '.join(found)}",
@@ -360,14 +423,12 @@ def main(argv=None) -> int:
             "power_limit": card, "spans_ms": rec["spans"],
             "k1_launches": rec["k1_launches"],
             "k1_device_s": rec["k1_device_s"]}), flush=True)
-    line = result_line(spec, run, bool(args.trace),
-                       torch.cuda.get_device_name(0))
+    line = result_line(spec, run, bool(args.trace), kind)
     print(json.dumps(line), flush=True)
     for name, n in line["check"].items():
         print(f"check {name} {n['value']!r} limit {n['limit']!r}",
               file=sys.stderr, flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

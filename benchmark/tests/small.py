@@ -1,7 +1,11 @@
 """The cells at sizes a CPU test run holds: the same files, with fewer
-poses and closures, and the streaming cell's capacities cut to match."""
+poses and closures, and the streaming cell's capacities cut to match;
+and a batch-solve cell of the test's own (cells/), which BENCHMARK.json
+does not list, run by as many ranks as a test asks for."""
 
 from __future__ import annotations
+
+import os
 
 import benchmark.run as R
 
@@ -18,6 +22,24 @@ def small_spec(cell: str) -> dict:
                                         panel_nodes=32)
         spec["workload"]["warmup_poses"] = 70
     return spec
+
+
+CELLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cells")
+
+
+def batch_spec(chips: int = 1, workload: str = "batch-small") -> dict:
+    """The test's batch-solve cell (cells/batch-small.json and its
+    configuration) on `chips` ranks, with BENCHMARK.json's end-to-end
+    metrics of every cell."""
+    wl = R.load_json(CELLS, workload + ".json")
+    bench = R.load_json(R.ROOT, "BENCHMARK.json")
+    return {"cell": {"name": workload, "config": wl["config"],
+                     "traffic": wl["traffic"], "chips": chips},
+            "end_to_end": [m for m in bench["end_to_end"]
+                           if "workloads" not in m],
+            "per_layer": [],
+            "config": R.load_json(CELLS, wl["config"] + ".json"),
+            "workload": wl}
 
 
 class Args:

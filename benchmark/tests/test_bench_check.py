@@ -9,10 +9,10 @@ import pytest
 
 import benchmark.run as R
 from benchmark.control import readings
-from benchmark.faults import FAULTS
 from benchmark.tests.small import Args, small_spec
 
 CELLS = ["m3500-perstep", "city10k-stream"]
+REPLAY_FAULTS = R.load_file("drivers", "replay").FAULTS
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -26,6 +26,12 @@ def test_sound_run_is_correct(cell):
     assert len(v["answers"]) == steps + 1
     line = R.result_line(spec, run, False, "cpu")
     assert line["correct"] is True
+    # the replay cells' check: posegraph's numbers, the workload's limits
+    assert list(line) == ["correct", "attempted", "failed", "metrics",
+                          "device", "check"]
+    assert {n: x["limit"] for n, x in line["check"].items()} == \
+        spec["workload"]["check"]["limits"]
+    assert list(line["check"]) == ["chi2_rel", "end_gap", "nonfinite"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -36,7 +42,7 @@ def test_float32_control_fails(cell):
         v["numbers"]["chi2_rel"]["limit"]
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("fault", sorted(REPLAY_FAULTS))
 @pytest.mark.parametrize("cell", CELLS)
 def test_planted_fault_fails(cell, fault):
     assert not readings(small_spec(cell), 12, "cpu", fault=fault)["correct"]
